@@ -1,0 +1,33 @@
+"""rrnet_torch — RRNet on PyTorch and CUDA for one NVIDIA H100.
+
+A second package beside `rrnet_tpu`, the JAX/TPU implementation, which
+stays unchanged as the frozen reference every module here is tested
+against (`tests/test_torch_*.py`: same numpy inputs, same weights carried
+across by `utils.from_flax`).
+
+Ground rules:
+
+  * Imports. This package imports `torch` and numpy only. It never
+    imports `jax`, `flax` or anything of `rrnet_tpu`, not even that
+    package's pure-numpy modules; what it needs from them is copied
+    here (`config.py`, `data/yuv420.py`). `tests/test_torch_rrnet.py`
+    enforces this.
+  * Layout. Modules compute in NCHW (cuDNN's layout). Public results keep
+    the JAX package's NHWC shapes: `RRNetOutputs.hms/whs/offsets`,
+    `ops.heatmap.Detections` and the (B, R, 3, 3, C) ROI-align output.
+  * Device. Entry points (`build_model`, `evallib.infer.Evaluator`,
+    `serving.Predictor`) default to `device="cuda"` and raise when no
+    card is present; they never carry on on the CPU unless the caller
+    asks for it (the tests pass `device="cpu"`).
+  * Kernels. Every Pallas kernel of the JAX package on a ported path is a
+    hand-written CUDA kernel here (`csrc/`, built at first use into
+    `build/rrnet_torch/`). Its wrapper runs the plain PyTorch version for
+    a CPU tensor and launches the kernel or raises for a CUDA tensor:
+    there is no fallback.
+  * Dtypes. Compute dtype comes from `cfg.model.dtype` (bf16 for the
+    preset); parameters stay f32; decode, NMS and ROI-align run in f32.
+
+Ported so far: the serving path of the flagship `rrnet` preset
+(hourglass-104, 2 stacks) at deployment settings (one scale, no flip),
+with stage-1 soft-NMS as the CUDA kernel `csrc/soft_nms.cu`.
+"""

@@ -1,0 +1,166 @@
+"""Stacked hourglass, plain variant (port of
+`rrnet_tpu/models/backbones/hourglass.py:31-219`), NCHW.
+
+Module names follow the flax scopes (`pre_conv`, `hg0.up1_0.conv1`, ...)
+so that `utils.from_flax` maps the JAX package's parameter tree by name.
+The dense and squeeze-excitation variants are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rrnet_torch.models.layers import BatchNorm, Conv2d, ConvBN, stem_conv
+
+
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """`jax.image.resize(method="nearest")`'s source index for each
+    output position, floor((i + 0.5) * n_in / n_out) in f32 as JAX
+    computes it. (`F.interpolate` picks other pixels at ratios that are
+    not 2: its 'nearest' floors i * n_in / n_out, and 'nearest-exact'
+    rounds its scale differently.)"""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
+    return torch.floor(pos * n_in / n_out).long()
+
+
+def upsample2x_nearest_add(low3: torch.Tensor, up1: torch.Tensor) -> torch.Tensor:
+    """up1 + nearest upsample of low3 to up1's size (reference
+    hourglass.py:110-124). At exactly 2x (every level of the 768x1408
+    bucket) the upsample is duplication; otherwise JAX's resize rule."""
+    h2, w2 = low3.shape[-2:]
+    oh, ow = up1.shape[-2:]
+    if (oh, ow) == (2 * h2, 2 * w2):
+        up = low3.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+        return up1 + up
+    iy = _nearest_index(h2, oh, low3.device)
+    ix = _nearest_index(w2, ow, low3.device)
+    return up1 + low3.index_select(-2, iy).index_select(-1, ix)
+
+
+class HGResidual(nn.Module):
+    """3x3(s)-BN-relu-3x3-BN with a 1x1(s)-BN skip when the shape changes
+    (reference hourglass.py:12-40)."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.conv1 = Conv2d(cin, features, 3, stride, 1, bias=False,
+                            dtype=dtype)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False,
+                            dtype=dtype)
+        self.bn2 = BatchNorm(features)
+        if stride != 1 or cin != features:
+            self.skip_conv = Conv2d(cin, features, 1, stride, 0, bias=False,
+                                    dtype=dtype)
+            self.skip_bn = BatchNorm(features)
+        else:
+            self.skip_conv = None
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        skip = x if self.skip_conv is None else self.skip_bn(self.skip_conv(x))
+        return F.relu(out + skip)
+
+
+class Hourglass(nn.Module):
+    """One recursive hourglass: stride-2 residual down path (no pooling),
+    nearest x2 up path (reference hourglass.py:64-124)."""
+
+    def __init__(self, n: int, inplanes: Sequence[int],
+                 layer_nums: Sequence[int], cin: int, dtype=torch.float32):
+        super().__init__()
+        cur, nxt = inplanes[0], inplanes[1]
+        cur_num, nxt_num = layer_nums[0], layer_nums[1]
+        self.n = n
+        self.cur_num = cur_num
+        self.nxt_num = nxt_num
+        for i in range(cur_num):
+            self.add_module(f"up1_{i}", HGResidual(cin if i == 0 else cur,
+                                                   cur, dtype=dtype))
+        self.add_module("low1_0", HGResidual(cin, nxt, stride=2, dtype=dtype))
+        for i in range(1, cur_num):
+            self.add_module(f"low1_{i}", HGResidual(nxt, nxt, dtype=dtype))
+        if n > 1:
+            self.low2 = Hourglass(n - 1, inplanes[1:], layer_nums[1:], nxt,
+                                  dtype=dtype)
+        else:
+            for i in range(nxt_num):
+                self.add_module(f"low2_{i}", HGResidual(nxt, nxt, dtype=dtype))
+        for i in range(cur_num - 1):
+            self.add_module(f"low3_{i}", HGResidual(nxt, nxt, dtype=dtype))
+        self.add_module(f"low3_{cur_num - 1}",
+                        HGResidual(nxt, cur, dtype=dtype))
+
+    def forward(self, x):
+        up1 = x
+        for i in range(self.cur_num):
+            up1 = getattr(self, f"up1_{i}")(up1)
+        low1 = self.low1_0(x)
+        for i in range(1, self.cur_num):
+            low1 = getattr(self, f"low1_{i}")(low1)
+        if self.n > 1:
+            low2 = self.low2(low1)
+        else:
+            low2 = low1
+            for i in range(self.nxt_num):
+                low2 = getattr(self, f"low2_{i}")(low2)
+        low3 = low2
+        for i in range(self.cur_num):
+            low3 = getattr(self, f"low3_{i}")(low3)
+        return upsample2x_nearest_add(low3, up1)
+
+
+class HourglassNet(nn.Module):
+    """Stacked hourglass (reference hourglass.py:127-199). Returns one
+    `num_feats`-channel stride-4 NCHW map per stack."""
+
+    def __init__(self, num_stacks: int = 2, depth: int = 5,
+                 inplanes: Sequence[int] = (256, 256, 384, 384, 384, 512),
+                 layer_nums: Sequence[int] = (2, 2, 2, 2, 2, 4),
+                 num_feats: int = 256, in_channels: int = 3,
+                 dtype=torch.float32):
+        super().__init__()
+        self.num_stacks = num_stacks
+        self.num_feats = num_feats
+        self.pre_conv = stem_conv(in_channels, 128, dtype=dtype)
+        self.pre_bn = BatchNorm(128)
+        self.pre_res = HGResidual(128, 256, stride=2, dtype=dtype)
+        c0 = inplanes[0]
+        cin = 256               # pre_res, then inter_res{i} (c0) feed a stack
+        for i in range(num_stacks):
+            self.add_module(f"hg{i}", Hourglass(depth, inplanes, layer_nums,
+                                                cin, dtype=dtype))
+            self.add_module(f"out_conv{i}",
+                            ConvBN(c0, num_feats, 3, with_relu=False,
+                                   dtype=dtype))
+            if i < num_stacks - 1:
+                self.add_module(f"inter{i}", ConvBN(cin, c0, 1,
+                                                    with_relu=False,
+                                                    dtype=dtype))
+                self.add_module(f"fuse{i}", ConvBN(num_feats, c0, 1,
+                                                   with_relu=False,
+                                                   dtype=dtype))
+                self.add_module(f"inter_res{i}", HGResidual(c0, c0,
+                                                            dtype=dtype))
+                cin = c0
+
+    def forward(self, x) -> List[torch.Tensor]:
+        x = F.relu(self.pre_bn(self.pre_conv(x)))
+        pre_feat = self.pre_res(x)
+        outs = []
+        for i in range(self.num_stacks):
+            feat = getattr(self, f"hg{i}")(pre_feat)
+            feat = getattr(self, f"out_conv{i}")(feat)
+            outs.append(feat)
+            feat = F.relu(feat)
+            if i < self.num_stacks - 1:
+                a = getattr(self, f"inter{i}")(pre_feat)
+                b = getattr(self, f"fuse{i}")(feat)
+                pre_feat = getattr(self, f"inter_res{i}")(F.relu(a + b))
+        return outs

@@ -1,0 +1,38 @@
+"""Config -> model (port of `rrnet_tpu/models/build.py:16-40`)."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from rrnet_torch.config import Config
+from rrnet_torch.models.layers import dtype_of, init_weights
+from rrnet_torch.models.rrnet import RRNet
+from rrnet_torch.utils.device import resolve_device
+
+
+def build_model(cfg: Config, device: Union[str, torch.device] = "cuda",
+                generator: Optional[torch.Generator] = None):
+    """The configured detector in eval mode on `device`, its weights drawn
+    on the CPU from `generator` (default: seeded with cfg.seed), so one
+    seed gives the same weights on every machine. Load trained weights
+    with `load_state_dict` (see utils.from_flax). Only 'rrnet' is
+    ported."""
+    dev = resolve_device(device)
+    m = cfg.model
+    if m.name != "rrnet":
+        raise NotImplementedError(f"model {m.name!r} is not ported yet")
+    if m.with_self_attention:
+        raise NotImplementedError("self-attention is not ported yet")
+    model = RRNet(num_classes=cfg.num_classes, num_stacks=m.num_stacks,
+                  backbone=m.backbone, wh_kernel=m.wh_kernel, topk=m.topk,
+                  stage2_rois=m.stage2_rois, nms_type=m.nms_type_for_stage1,
+                  nms_per_class=m.nms_per_class_for_stage1,
+                  nms_iou=m.stage1_nms_iou, soft_nms_sigma=m.soft_nms.sigma,
+                  soft_nms_score_threshold=m.soft_nms.score_threshold,
+                  dtype=dtype_of(m.dtype))
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    init_weights(model, generator)
+    return model.to(dev).eval()

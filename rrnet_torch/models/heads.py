@@ -1,0 +1,107 @@
+"""Detection heads (port of `rrnet_tpu/models/heads.py:28-133`).
+
+Heads take NCHW features. The stage-1 heads return NHWC maps, the JAX
+package's public layout. Per-stack heads hold one parameter set per stack
+under the flax scope names (`conv{stack}`, `out{stack}`, `hconv{stack}`,
+`wconv{stack}`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rrnet_torch.models.layers import (Bottleneck, Conv2d, Linear,
+                                       torch_conv_init_)
+
+
+class ConvParam(nn.Module):
+    """An OIHW conv weight and bias that a head applies in its own form
+    (flax `_ConvParam`)."""
+
+    def __init__(self, cin: int, cout: int, kh: int, kw: int,
+                 bias_value: float = 0.0):
+        super().__init__()
+        self.bias_value = bias_value
+        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def reset_parameters_from(self, generator: torch.Generator) -> None:
+        cout, cin, kh, kw = self.weight.shape
+        torch_conv_init_(self.weight, cin * kh * kw, generator)
+        nn.init.constant_(self.bias, self.bias_value)
+
+
+class CenterNetHead(nn.Module):
+    """Per stack: 3x3 conv (bias, no BN) + relu, then the 1x1 out conv as
+    a matmul. Heatmap heads start their bias at -2.19."""
+
+    def __init__(self, planes: int, num_stacks: int = 2,
+                 is_heatmap: bool = False, mid_channels: int = 256,
+                 in_channels: int = 256, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        for i in range(num_stacks):
+            self.add_module(f"conv{i}", Conv2d(in_channels, mid_channels, 3,
+                                               1, 1, dtype=dtype))
+            self.add_module(f"out{i}", ConvParam(
+                mid_channels, planes, 1, 1,
+                bias_value=-2.19 if is_heatmap else 0.0))
+
+    def forward(self, x, stack: int):
+        """x (B, C, H, W) -> (B, H, W, planes)."""
+        x = F.relu(getattr(self, f"conv{stack}")(x))
+        out = getattr(self, f"out{stack}")
+        w = out.weight[:, :, 0, 0].to(self.dtype)
+        return x.permute(0, 2, 3, 1) @ w.t() + out.bias.to(self.dtype)
+
+
+class CenterNetWHHead(nn.Module):
+    """Shared 3x3 conv + relu, then a (k,1) column conv predicting H and
+    a (1,k) row conv predicting W, interleaved W then H per plane
+    (reference detectors/centernet_detector.py:47-55: channel 0 is W).
+    The JAX package's matmul-plus-shifted-sum form is a TPU layout
+    choice; the asymmetric convs compute the same sums."""
+
+    def __init__(self, planes: int = 1, num_stacks: int = 2,
+                 kernel: int = 17, mid_channels: int = 256,
+                 in_channels: int = 256, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.pad = (kernel - 1) // 2
+        for i in range(num_stacks):
+            self.add_module(f"conv{i}", Conv2d(in_channels, mid_channels, 3,
+                                               1, 1, dtype=dtype))
+            self.add_module(f"hconv{i}", ConvParam(mid_channels, planes,
+                                                   kernel, 1))
+            self.add_module(f"wconv{i}", ConvParam(mid_channels, planes,
+                                                   1, kernel))
+
+    def forward(self, x, stack: int):
+        """x (B, C, H, W) -> (B, H, W, 2 * planes) [W0, H0, W1, H1, ...]."""
+        conv = F.relu(getattr(self, f"conv{stack}")(x))
+        hp = getattr(self, f"hconv{stack}")
+        wp = getattr(self, f"wconv{stack}")
+        h = F.conv2d(conv, hp.weight.to(self.dtype), hp.bias.to(self.dtype),
+                     padding=(self.pad, 0))
+        w = F.conv2d(conv, wp.weight.to(self.dtype), wp.bias.to(self.dtype),
+                     padding=(0, self.pad))
+        out = torch.stack([w, h], dim=-1)           # (B, p, H, W, 2)
+        bsz, p, hh, ww, _ = out.shape
+        return out.permute(0, 2, 3, 1, 4).reshape(bsz, hh, ww, 2 * p)
+
+
+class FasterRCNNHead(nn.Module):
+    """RRNet stage 2: Bottleneck(64) on the 3x3 ROI feature, mean over the
+    3x3, then Dense(4)."""
+
+    def __init__(self, in_channels: int = 256, dtype=torch.float32):
+        super().__init__()
+        self.top = Bottleneck(in_channels, 64, dtype=dtype)
+        self.regressor = Linear(256, 4, dtype=dtype)
+
+    def forward(self, roi_feat):
+        """roi_feat (N, C, 3, 3) -> (N, 4) deltas."""
+        x = self.top(roi_feat)
+        return self.regressor(x.mean(dim=(-2, -1)))

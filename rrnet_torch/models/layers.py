@@ -1,0 +1,188 @@
+"""Building blocks (port of `rrnet_tpu/models/layers.py:113-419`), NCHW.
+
+Parameters are f32 and are cast to the module's compute dtype on use,
+as flax's `promote_dtype` does. Modules allocate their parameters
+uninitialised; `init_weights(model, generator)` fills them from a
+`torch.Generator` with the JAX package's initialisers, and checkpoints
+come in through `utils.from_flax`.
+
+`BatchNorm` is the inference form (`_InferenceBN`, layers.py:192-222):
+one affine folded from the running statistics in f32, then cast to the
+activation dtype. Batch statistics come with the train slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def torch_conv_init_(w: torch.Tensor, fan_in: int,
+                     generator: torch.Generator) -> None:
+    """torch's default conv init, U(+-1/sqrt(fan_in)) (the JAX package's
+    variance_scaling(1/3, fan_in, uniform))."""
+    bound = math.sqrt(1.0 / fan_in)
+    with torch.no_grad():
+        w.uniform_(-bound, bound, generator=generator)
+
+
+def msra_init_(w: torch.Tensor, fan_out: int,
+               generator: torch.Generator) -> None:
+    """normal(0, sqrt(2/fan_out)) (variance_scaling(2, fan_out, normal))."""
+    with torch.no_grad():
+        w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every parameter of `model` from `generator`, module by
+    module in registration order. Returns the model."""
+    for m in model.modules():
+        if hasattr(m, "reset_parameters_from"):
+            m.reset_parameters_from(generator)
+    return model
+
+
+class Conv2d(nn.Module):
+    """Conv with an OIHW f32 weight, computed in `dtype` (the f32/bf16
+    path of the JAX Conv2d; its int8 path is not ported yet)."""
+
+    def __init__(self, cin: int, cout: int, kernel, stride=1, padding=0,
+                 bias: bool = True, init: str = "torch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+        self.stride = stride
+        self.padding = padding
+        self.init = init
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+
+    def reset_parameters_from(self, generator: torch.Generator) -> None:
+        cout, cin, kh, kw = self.weight.shape
+        if self.init == "msra":
+            msra_init_(self.weight, kh * kw * cout, generator)
+        else:
+            torch_conv_init_(self.weight, kh * kw * cin, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
+                        self.stride, self.padding)
+
+
+class BatchNorm(nn.Module):
+    """Inference BN: mul = weight * rsqrt(var + eps), add = bias - mean *
+    mul, computed in f32 and applied in the activation dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("running_mean", torch.empty(channels))
+        self.register_buffer("running_var", torch.empty(channels))
+
+    def reset_parameters_from(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        nn.init.zeros_(self.running_mean)
+        nn.init.ones_(self.running_var)
+
+    def forward(self, x):
+        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
+        add = self.bias - self.running_mean * mul
+        return (x * mul.to(x.dtype)[:, None, None]
+                + add.to(x.dtype)[:, None, None])
+
+
+class ConvBN(nn.Module):
+    """kxk conv (+BN) (+ReLU); bias only when BN is off."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 3,
+                 stride: int = 1, with_bn: bool = True,
+                 with_relu: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv2d(cin, features, kernel, stride, (kernel - 1) // 2,
+                           bias=not with_bn, dtype=dtype)
+        self.bn = BatchNorm(features) if with_bn else None
+        self.with_relu = with_relu
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.relu(x) if self.with_relu else x
+
+
+class Bottleneck(nn.Module):
+    """ResNet bottleneck, expansion 4, msra init (reference
+    resnet.py:17-53)."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        cout = planes * 4
+        self.conv1 = Conv2d(cin, planes, 1, bias=False, init="msra",
+                            dtype=dtype)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False,
+                            init="msra", dtype=dtype)
+        self.bn2 = BatchNorm(planes)
+        self.conv3 = Conv2d(planes, cout, 1, bias=False, init="msra",
+                            dtype=dtype)
+        self.bn3 = BatchNorm(cout)
+        if stride != 1 or cin != cout:
+            self.downsample_conv = Conv2d(cin, cout, 1, stride, bias=False,
+                                          init="msra", dtype=dtype)
+            self.downsample_bn = BatchNorm(cout)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        skip = (x if self.downsample_conv is None
+                else self.downsample_bn(self.downsample_conv(x)))
+        return F.relu(out + skip)
+
+
+class Linear(nn.Module):
+    """flax Dense: (out, in) f32 weight computed in `dtype`, torch conv
+    init on the kernel, zero bias."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def reset_parameters_from(self, generator: torch.Generator) -> None:
+        torch_conv_init_(self.weight, self.weight.shape[1], generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+def max_pool(x, window: int, stride: int, padding: int):
+    """torch MaxPool2d (pads with -inf, as flax's max_pool)."""
+    return F.max_pool2d(x, window, stride, padding)
+
+
+def stem_conv(cin: int, features: int, dtype=torch.float32) -> Conv2d:
+    """The 7x7 stride-2 pad-3 stem. The JAX package computes it by
+    space-to-depth (`_stem_conv_s2d`, a TPU layout choice);
+    tests/test_models.py proves that equal to this plain conv."""
+    return Conv2d(cin, features, 7, 2, 3, bias=False, dtype=dtype)
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]

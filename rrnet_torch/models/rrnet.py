@@ -1,0 +1,131 @@
+"""RRNet, the hybrid two-stage detector (port of
+`rrnet_tpu/models/rrnet.py:30-184`), inference forward.
+
+Stage 1: stacked-hourglass CenterNet heads per stack; the last stack is
+decoded to top-k candidates, NMS'd per image on the device (soft-NMS by
+the CUDA kernel of `ops/soft_nms.py`, or the hard-NMS fixpoint), and cut
+to a static budget of R ROIs. Stage 2: 3x3 ROI-align over relu(last
+feature) and a bottleneck regressor. Decode, NMS and ROI-align run in
+f32 whatever the compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rrnet_torch.models.backbones import get_backbone
+from rrnet_torch.models.heads import CenterNetHead, CenterNetWHHead, FasterRCNNHead
+from rrnet_torch.ops.heatmap import topk_decode, topk_desc
+from rrnet_torch.ops.nms import hard_nms
+from rrnet_torch.ops.roi_align import roi_align
+from rrnet_torch.ops.soft_nms import soft_nms
+
+
+def mask_heatmap_extent(hm: torch.Tensor, valid_hw: torch.Tensor,
+                        scale_factor: int = 4) -> torch.Tensor:
+    """Set (B, H, W, C) heatmap logits outside each image's valid
+    stride-s extent to -1e9; valid_hw (B, 2) int image-pixel [h, w]."""
+    b, h, w, _ = hm.shape
+    fy = torch.ceil(valid_hw[:, 0].float() / scale_factor)[:, None, None]
+    fx = torch.ceil(valid_hw[:, 1].float() / scale_factor)[:, None, None]
+    ys = torch.arange(h, dtype=torch.float32, device=hm.device)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=hm.device)[None, None, :]
+    ok = (ys < fy) & (xs < fx)
+    return torch.where(ok[..., None], hm, -1e9)
+
+
+class RRNetOutputs(NamedTuple):
+    hms: tuple                 # per-stack (B, H, W, C) heatmap logits
+    whs: tuple                 # per-stack (B, H, W, 2)
+    offsets: tuple             # per-stack (B, H, W, 2)
+    stage2_reg: torch.Tensor   # (B, R, 4) regression deltas
+    rois: torch.Tensor         # (B, R, 4) xyxy in stride-4 feature coords
+    roi_scores: torch.Tensor   # (B, R) stage-1 scores (post NMS decay)
+    roi_classes: torch.Tensor  # (B, R) int32 0-based classes
+    roi_valid: torch.Tensor    # (B, R) bool
+
+
+class RRNet(nn.Module):
+    def __init__(self, num_classes: int = 10, num_stacks: int = 2,
+                 backbone: str = "hourglass", wh_kernel: int = 17,
+                 topk: int = 1500, stage2_rois: int = 512,
+                 nms_type: str = "nms", nms_per_class: bool = True,
+                 nms_iou: float = 0.7, soft_nms_sigma: float = 0.5,
+                 soft_nms_score_threshold: float = 0.1,
+                 dtype=torch.float32):
+        super().__init__()
+        if nms_type not in ("nms", "soft_nms"):
+            raise ValueError(f"unknown stage-1 nms_type {nms_type!r}")
+        self.num_stacks = num_stacks
+        self.topk = topk
+        self.stage2_rois = stage2_rois
+        self.nms_type = nms_type
+        self.nms_per_class = nms_per_class
+        self.nms_iou = nms_iou
+        self.soft_nms_sigma = soft_nms_sigma
+        self.soft_nms_score_threshold = soft_nms_score_threshold
+        self.backbone = get_backbone(backbone, num_stacks, dtype=dtype)
+        feats = self.backbone.num_feats
+        self.hm = CenterNetHead(num_classes, num_stacks, is_heatmap=True,
+                                in_channels=feats, dtype=dtype)
+        self.wh = CenterNetWHHead(1, num_stacks, kernel=wh_kernel,
+                                  in_channels=feats, dtype=dtype)
+        self.offset = CenterNetHead(2, num_stacks, in_channels=feats,
+                                    dtype=dtype)
+        self.head_detector = FasterRCNNHead(feats, dtype=dtype)
+
+    def select_rois(self, boxes, scores, classes):
+        """Per image: stage-1 NMS, then the R best kept candidates (lower
+        index first among equal scores). Returns (rois, roi_scores with 0
+        where invalid, roi_classes, roi_valid)."""
+        cls_ids = classes if self.nms_per_class else None
+        if self.nms_type == "soft_nms":
+            new_scores, keep, _ = soft_nms(
+                boxes, scores, class_ids=cls_ids, sigma=self.soft_nms_sigma,
+                iou_threshold=self.nms_iou,
+                score_threshold=self.soft_nms_score_threshold,
+                method="gaussian", max_out=self.stage2_rois)
+            masked = torch.where(keep, new_scores, -torch.inf)
+        else:
+            keep = hard_nms(boxes, scores, self.nms_iou, class_ids=cls_ids)
+            masked = torch.where(keep, scores, -torch.inf)
+        top, idx = topk_desc(masked, self.stage2_rois)
+        valid = top > -torch.inf
+        rois = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+        return (rois, torch.where(valid, top, 0.0),
+                torch.gather(classes, 1, idx), valid)
+
+    def forward(self, x: torch.Tensor,
+                valid_hw: Optional[torch.Tensor] = None) -> RRNetOutputs:
+        """x (B, 3, H, W); valid_hw optional (B, 2) int [h, w] image
+        extents inside a padded bucket (logits outside are masked)."""
+        feats = self.backbone(x)
+        hms, whs, offsets = [], [], []
+        for i in range(self.num_stacks):
+            f = F.relu(feats[i])
+            hms.append(self.hm(f, i))
+            whs.append(self.wh(f, i))
+            offsets.append(self.offset(f, i))
+
+        hm_last = hms[-1].float()
+        if valid_hw is not None:
+            hm_last = mask_heatmap_extent(hm_last, valid_hw, scale_factor=4)
+        dets = topk_decode(hm_last, whs[-1].float(), offsets[-1].float(),
+                           k=self.topk)
+        rois, roi_scores, roi_classes, roi_valid = self.select_rois(
+            dets.boxes.contiguous(), dets.scores.contiguous(),
+            dets.classes.contiguous())
+
+        last = F.relu(feats[-1]).permute(0, 2, 3, 1).contiguous()
+        roi_feat = roi_align(last, rois, output_size=(3, 3))  # (B, R, 3, 3, C)
+        b, r, _, _, c = roi_feat.shape
+        s2 = self.head_detector(
+            roi_feat.reshape(b * r, 3, 3, c).permute(0, 3, 1, 2))
+        return RRNetOutputs(
+            hms=tuple(hms), whs=tuple(whs), offsets=tuple(offsets),
+            stage2_reg=s2.reshape(b, r, 4), rois=rois, roi_scores=roi_scores,
+            roi_classes=roi_classes, roi_valid=roi_valid)

@@ -1,0 +1,112 @@
+"""Carries the JAX package's weights across to the port.
+
+Input: the `{"params": ..., "batch_stats": ...}` variables of a flax
+model as nested dicts of numpy arrays (`jax.tree.map(np.asarray, v)` on
+the JAX side; nothing here needs JAX). Output: a `state_dict` for the
+port's module of the same name, whose module names follow the flax
+scopes. The conversions:
+
+  * conv kernels HWIO -> OIHW: the plain convs, the 7x7 stem as it is
+    stored (not its space-to-depth form), and the heads' `_ConvParam`
+    kernels ((1,1,C,p) out convs, (k,1,C,p) / (1,k,C,p) wh convs);
+  * Dense kernels (in, out) -> (out, in);
+  * BatchNorm `scale`/`bias` and `batch_stats` `mean`/`var` ->
+    `weight`/`bias`/`running_mean`/`running_var` (the flax `BatchNorm_0`
+    scope is dropped).
+
+A leaf no rule maps raises; `load_flax_variables` also raises on a
+parameter the model has and the tree lacks, or the other way round, and
+on any shape that differs.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_BN = "BatchNorm_0"
+
+
+def _leaves(tree, prefix: Tuple[str, ...] = ()):
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def _convert(collection: str, path: Tuple[str, ...], leaf):
+    name = path[-1]
+    scope = path[:-1]
+    if _BN in scope:
+        if scope[-1] != _BN:
+            raise ValueError(f"unexpected leaf under {_BN}: {path}")
+        torch_name = {("params", "scale"): "weight",
+                      ("params", "bias"): "bias",
+                      ("batch_stats", "mean"): "running_mean",
+                      ("batch_stats", "var"): "running_var"}.get(
+                          (collection, name))
+        if torch_name is None:
+            raise ValueError(f"unmapped BatchNorm leaf {collection}/"
+                             f"{'/'.join(path)}")
+        return ".".join(scope[:-1] + (torch_name,)), np.asarray(leaf)
+    if collection != "params":
+        raise ValueError(f"unmapped leaf {collection}/{'/'.join(path)}")
+    if name == "bias" and np.ndim(leaf) == 1:
+        return ".".join(scope + ("bias",)), np.asarray(leaf)
+    if name == "kernel" and np.ndim(leaf) == 4:        # HWIO -> OIHW
+        return ".".join(scope + ("weight",)), np.transpose(leaf, (3, 2, 0, 1))
+    if name == "kernel" and np.ndim(leaf) == 2:        # Dense (in, out)
+        return ".".join(scope + ("weight",)), np.transpose(leaf)
+    raise ValueError(f"unmapped leaf params/{'/'.join(path)} with shape "
+                     f"{np.shape(leaf)}")
+
+
+def numpy_state_from_flax(variables) -> Dict[str, np.ndarray]:
+    """{torch state_dict key: numpy array (possibly a transposed view)}
+    for every leaf of `variables`; raises on an unmapped leaf."""
+    out: Dict[str, np.ndarray] = {}
+    for collection, tree in variables.items():
+        if collection not in ("params", "batch_stats"):
+            raise ValueError(f"unmapped collection {collection!r}")
+        for path, leaf in _leaves(tree):
+            key, arr = _convert(collection, path, leaf)
+            if key in out:
+                raise ValueError(f"two leaves map to {key}")
+            out[key] = arr
+    return out
+
+
+def torch_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """A state_dict (f32 CPU tensors) for the port's model from the JAX
+    package's variables."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in numpy_state_from_flax(variables).items()}
+
+
+def check_state_shapes(expected: Mapping[str, Tuple[int, ...]],
+                       got: Mapping[str, Tuple[int, ...]]) -> None:
+    """Raise unless `got` has exactly the keys of `expected`, with equal
+    shapes."""
+    missing = sorted(set(expected) - set(got))
+    extra = sorted(set(got) - set(expected))
+    if missing or extra:
+        raise ValueError(f"state mismatch: missing {missing[:10]} "
+                         f"({len(missing)}), extra {extra[:10]} ({len(extra)})")
+    bad = [(k, tuple(expected[k]), tuple(got[k])) for k in expected
+           if tuple(expected[k]) != tuple(got[k])]
+    if bad:
+        raise ValueError(f"shape mismatch (key, model, converted): {bad[:10]}")
+
+
+def load_flax_variables(model: nn.Module, variables) -> nn.Module:
+    """Load the JAX package's variables into the port's `model`, checking
+    that every parameter and buffer is covered with its shape."""
+    sd = torch_state_dict_from_flax(variables)
+    check_state_shapes({k: v.shape for k, v in model.state_dict().items()},
+                       {k: v.shape for k, v in sd.items()})
+    model.load_state_dict(sd, strict=True)
+    return model
