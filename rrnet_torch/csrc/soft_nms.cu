@@ -39,6 +39,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSlots = 8;  // register slots per thread
 constexpr float kNeg = -1e30f;
 
 // (value, index) max with the lower index winning ties.
@@ -207,8 +208,8 @@ void launch(const float* boxes, const float* scores, const unsigned char* valid,
 
 extern "C" {
 
-// Largest K one launch takes: 8 register slots per thread.
-int rrnet_soft_nms_max_k() { return 8 * kThreads; }
+// Largest K one launch takes.
+int rrnet_soft_nms_max_k() { return kMaxSlots * kThreads; }
 
 // Returns cudaGetLastError() after the launch (0 = launched). `valid`
 // may be null (all valid); `cls` may be null (class-agnostic).
@@ -217,8 +218,11 @@ int rrnet_soft_nms(const float* boxes, const float* scores,
                    float* out_scores, unsigned char* keep, int* rank, int B,
                    int K, int steps, int method, float sigma, float iou_thr,
                    float score_thr, void* stream) {
-  if (B < 1 || K < 1 || K > 8 * kThreads) return (int)cudaErrorInvalidValue;
+  if (B < 1 || K < 1 || K > kMaxSlots * kThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static_assert(kMaxSlots == 8, "one case below per slot count");
   switch ((K + kThreads - 1) / kThreads) {
 #define RRNET_CASE(n)                                                       \
   case n:                                                                   \

@@ -64,7 +64,7 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
              class_ids: Optional[torch.Tensor] = None, *,
              sigma: float = 0.5, iou_threshold: float = 0.3,
              score_threshold: float = 0.001, method: str = "gaussian",
-             max_out: Optional[int] = None):
+             max_out: Optional[int] = None, return_work: bool = False):
     """Bodla soft-NMS over a batch of fixed-K box sets, step by step with
     the arithmetic of the serial Pallas kernel
     (`rrnet_tpu/ops/pallas_nms.py:50-153`).
@@ -78,7 +78,10 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
 
     boxes (B, K, 4) xyxy f32, scores (B, K) f32, valid (B, K) bool or
     None, class_ids (B, K) int or None. Returns (new_scores f32 with NEG
-    for invalid slots, keep bool, rank int32 with K where unranked)."""
+    for invalid slots, keep bool, rank int32 with K where unranked).
+    With return_work, also a (B,) int64 count of the candidate slots
+    (active, unselected) summed over the steps: the slots each step's
+    argmax and decay must touch."""
     bsz, k = scores.shape
     dev = scores.device
     method_id = _METHODS[method]
@@ -92,12 +95,16 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
     selected = torch.zeros_like(valid)
     rank = torch.full((bsz, k), k, dtype=torch.int32, device=dev)
     idx = torch.arange(k, device=dev)
+    work = torch.zeros(bsz, dtype=torch.int64, device=dev)
 
     def pick(v, m):
         return torch.gather(v, 1, m)              # (B, 1)
 
     for step in range(steps):
-        cand = torch.where(active & ~selected, cur, torch.full_like(cur, NEG))
+        open_ = active & ~selected
+        if return_work:
+            work += open_.sum(1)
+        cand = torch.where(open_, cur, torch.full_like(cur, NEG))
         maxval = cand.max(dim=1, keepdim=True).values
         any_left = maxval > NEG                    # (B, 1)
         first = torch.where(cand >= maxval, idx, k).min(dim=1,
@@ -129,4 +136,6 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
         decay = active & ~selected & any_left
         cur = torch.where(decay, cur * wgt, cur)
         active = active & ~(decay & overlap_pos & (cur < score_threshold))
+    if return_work:
+        return cur, selected, rank, work
     return cur, selected, rank

@@ -18,27 +18,24 @@ from rrnet_torch.ops.nms import _METHODS
 from rrnet_torch.ops.nms import soft_nms as soft_nms_reference
 from rrnet_torch.utils import native
 
-__all__ = ["soft_nms", "soft_nms_reference", "launches", "MAX_K"]
+__all__ = ["soft_nms", "soft_nms_reference", "launches"]
 
 launches = 0
-MAX_K = 4096   # 8 register slots x 512 threads (rrnet_soft_nms_max_k)
 
-_fn = None
+_kernel_and_max_k = None
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
+    """The C entry of the kernel library and the largest K it takes."""
+    global _kernel_and_max_k
+    if _kernel_and_max_k is None:
         lib = native.load("soft_nms")
-        if lib.rrnet_soft_nms_max_k() != MAX_K:
-            raise RuntimeError("soft_nms library and wrapper disagree on "
-                               "the largest K")
         fn = lib.rrnet_soft_nms
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _kernel_and_max_k = fn, lib.rrnet_soft_nms_max_k()
+    return _kernel_and_max_k
 
 
 def _check(name, t, dtype, shape, device):
@@ -79,8 +76,6 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
         _check("valid", valid, torch.bool, (bsz, k), dev)
     if class_ids is not None:
         _check("class_ids", class_ids, torch.int32, (bsz, k), dev)
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"soft_nms kernel takes 1 <= K <= {MAX_K}, got {k}")
     if method not in _METHODS:
         raise ValueError(f"unknown soft-NMS method {method!r}")
     steps = k if max_out is None else min(max_out, k)
@@ -90,7 +85,9 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
     rank = torch.empty((bsz, k), dtype=torch.int32, device=dev)
     if bsz == 0:
         return new_scores, keep, rank
-    fn = _kernel()
+    fn, max_k = _kernel()
+    if not 1 <= k <= max_k:
+        raise ValueError(f"soft_nms kernel takes 1 <= K <= {max_k}, got {k}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(boxes.data_ptr(), scores.data_ptr(),

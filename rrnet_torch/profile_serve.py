@@ -4,13 +4,17 @@
 
 Serves the flagship `rrnet` preset with stage-1 soft-NMS (full width,
 bf16, seeded random weights) on one 765x1360 image at a time, as
-`chip_smoke.py` does, and prints:
-  * host staging time (pack + pinned upload) and request latency;
-  * device time per model part, from CUDA events around the backbone,
-    the stage-1 heads and the stage-2 head (the rest of the forward is
-    decode, NMS and ROI-align);
-  * the busiest kernels and the device's busy share of the profiled
-    wall time, from `torch.profiler`.
+`chip_smoke.py` does, and prints, as medians over N requests:
+  * request latency without the profiler, and host staging (pad, pack,
+    pinned upload);
+  * the device span of the forward and of its parts, from CUDA events
+    around the backbone, the stage-1 heads and the stage-2 head (the
+    rest of the forward is decode, NMS and ROI-align), and the host time
+    to issue the forward;
+  * kernel time per request and per bare forward, from `torch.profiler`:
+    the device's busy share of the unprofiled latency, and the gaps
+    between kernels inside the forward;
+  * the busiest kernels of a request.
 Needs a CUDA device.
 """
 
@@ -28,14 +32,18 @@ from rrnet_torch.serving import Predictor
 
 
 def _part_timers(model):
-    """CUDA event pairs around each timed part of the forward."""
+    """CUDA event pairs around each timed part of the forward, and the
+    host's perf_counter around the whole forward."""
     parts = {"forward": model, "backbone": model.backbone, "hm": model.hm,
              "wh": model.wh, "offset": model.offset,
              "head_detector": model.head_detector}
     events = {k: [] for k in parts}
+    host = []
     handles = []
     for name, mod in parts.items():
         def pre(_m, _a, name=name):
+            if name == "forward":
+                host.append(time.perf_counter())
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             events[name].append([ev, None])
@@ -44,10 +52,28 @@ def _part_timers(model):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             events[name][-1][1] = ev
+            if name == "forward":
+                host[-1] = time.perf_counter() - host[-1]
 
         handles += [mod.register_forward_pre_hook(pre),
                     mod.register_forward_hook(post)]
-    return events, handles
+    return events, host, handles
+
+
+def _kernel_ms(fn, n):
+    """Device kernel time per call of `fn` under torch.profiler, and the
+    profiler's averages."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    # kernel rows only: an operator row's device time repeats its kernels'
+    us = sum(e.self_device_time_total for e in avg
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / n, avg
 
 
 def main(argv=None) -> None:
@@ -68,11 +94,11 @@ def main(argv=None) -> None:
     stage_s = []
     for _ in range(n):
         t0 = time.perf_counter()
-        pred.stage([img])
+        staged = pred.stage([img])
         torch.cuda.synchronize()
         stage_s.append(time.perf_counter() - t0)
 
-    events, handles = _part_timers(model)
+    events, host_fwd, handles = _part_timers(model)
     lat = []
     for _ in range(n):
         t0 = time.perf_counter()
@@ -86,32 +112,32 @@ def main(argv=None) -> None:
     heads = part_ms["hm"] + part_ms["wh"] + part_ms["offset"]
     rest = (part_ms["forward"] - part_ms["backbone"] - heads
             - part_ms["head_detector"])
+    lat_ms = float(np.median(lat)) * 1e3
+    stage_ms = float(np.median(stage_s)) * 1e3
+    span = part_ms["forward"]
+
+    req_kernel_ms, avg = _kernel_ms(lambda: pred.predict(img), n)
+    with torch.inference_mode():
+        x = pred._ev._preprocess(staged)
+        vhw = torch.tensor(staged.hws, dtype=torch.int32, device="cuda")
+        fwd_kernel_ms, _ = _kernel_ms(lambda: model(x, valid_hw=vhw), n)
 
     print(f"{torch.cuda.get_device_name(0)}; {n} requests of 765x1360, "
-          f"transport {cfg.val.transport}")
-    print(f"host staging (pack + upload), median: "
-          f"{np.median(stage_s) * 1e3:.2f} ms")
-    print(f"request latency: p50 {np.median(lat) * 1e3:.2f} ms, "
-          f"min {min(lat) * 1e3:.2f} ms, max {max(lat) * 1e3:.2f} ms")
-    print("device time per part, median ms: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in part_ms.items())
+          f"transport {cfg.val.transport}; medians in ms")
+    print(f"request latency (no profiler): p50 {lat_ms:.2f}, "
+          f"min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}")
+    print(f"outside the forward: {lat_ms - span:.2f} (latency - forward "
+          f"span), of which host staging {stage_ms:.2f}, the rest "
+          f"(device preprocess, result copy, host sort) "
+          f"{lat_ms - span - stage_ms:.2f}")
+    print(f"forward: device span {span:.2f}, kernels {fwd_kernel_ms:.2f}, "
+          f"gaps between kernels {span - fwd_kernel_ms:.2f}; host time to "
+          f"issue it {float(np.median(host_fwd)) * 1e3:.2f}")
+    print("device span per part: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in part_ms.items() if k != "forward")
         + f"; decode+NMS+ROI-align {rest:.2f}")
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            pred.predict(img)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    # kernel rows only: an operator row's device time repeats its kernels'
-    device_us = sum(e.self_device_time_total for e in avg
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"profiled: wall {wall * 1e3 / n:.2f} ms/request, device busy "
-          f"{device_us / 1e3 / n:.2f} ms/request "
-          f"({100 * device_us / 1e6 / wall:.1f}% of wall)")
+    print(f"kernels per request {req_kernel_ms:.2f}: device busy "
+          f"{100 * req_kernel_ms / lat_ms:.1f}% of the unprofiled latency")
     print(avg.table(sort_by="self_device_time_total", row_limit=25,
                     max_name_column_width=60))
 

@@ -4,8 +4,7 @@ Each `csrc/<name>.cu` is compiled by `nvcc` into a shared library with a
 plain C interface and loaded with ctypes. Libraries go to
 `build/rrnet_torch/` at the root of the checkout (git-ignored), named by
 a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is built once. `build_all()` starts one `nvcc` per source,
-all at once.
+unchanged one is built once.
 """
 
 from __future__ import annotations
@@ -15,7 +14,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -51,39 +49,17 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str):
-    """Start nvcc for `name` unless its library is current; returns
-    (process, temp path, target) or None."""
-    target = _target(name)
-    if target.exists():
-        return None
+def _build(name: str, target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.parent / f"{target.stem}.{os.getpid()}.tmp.so"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, target
-
-
-def _finish(name: str, started) -> None:
-    proc, tmp, target = started
-    out, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(out)
-    if proc.returncode != 0:
+    res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    (BUILD_DIR / f"{name}.log").write_text(res.stdout)
+    if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{out}")
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{res.stdout}")
     os.replace(tmp, target)
-
-
-def build_all() -> float:
-    """Build every kernel library that is not current, one nvcc per
-    source, all started together. Returns the seconds it took."""
-    t0 = time.perf_counter()
-    started = {n: _start(n) for n in SOURCES}
-    for name, st in started.items():
-        if st is not None:
-            _finish(name, st)
-    return time.perf_counter() - t0
 
 
 def build_log(name: str) -> List[str]:
@@ -97,9 +73,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if it is not current."""
     lib = _loaded.get(name)
     if lib is None:
-        started = _start(name)
-        if started is not None:
-            _finish(name, started)
-        lib = ctypes.CDLL(str(_target(name)))
+        target = _target(name)
+        if not target.exists():
+            _build(name, target)
+        lib = ctypes.CDLL(str(target))
         _loaded[name] = lib
     return lib
