@@ -1,5 +1,5 @@
 """Models (NCHW inside, the JAX package's NHWC at the outputs)."""
 
-from rrnet_torch.models.build import build_model
+from rrnet_torch.models.build import build_backbone, build_model
 
-__all__ = ["build_model"]
+__all__ = ["build_backbone", "build_model"]

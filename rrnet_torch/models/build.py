@@ -1,4 +1,5 @@
-"""Config -> model (port of `rrnet_tpu/models/build.py:16-40`)."""
+"""Config -> model (port of `rrnet_tpu/models/build.py:16-40`), and
+name -> backbone for the backbones no ported detector runs yet."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ from typing import Optional, Union
 import torch
 
 from rrnet_torch.config import Config
+from rrnet_torch.models.backbones import get_backbone
 from rrnet_torch.models.layers import dtype_of, init_weights
 from rrnet_torch.models.rrnet import RRNet
 from rrnet_torch.utils.device import resolve_device
@@ -34,5 +36,22 @@ def build_model(cfg: Config, device: Union[str, torch.device] = "cuda",
                   dtype=dtype_of(m.dtype))
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
+    init_weights(model, generator)
+    return model.to(dev).eval()
+
+
+def build_backbone(name: str, device: Union[str, torch.device] = "cuda",
+                   generator: Optional[torch.Generator] = None,
+                   dtype: torch.dtype = torch.float32):
+    """The backbone `name` (see `models.backbones.get_backbone`) in eval
+    mode on `device`, its weights drawn on the CPU from `generator`
+    (default: seeded with 0) with the JAX package's initialisers; call
+    `.train()` for batch statistics. This is the entry point of the
+    trident backbones, which no ported detector runs: the JAX package's
+    detectors cannot take their 3x batch (see ROADMAP C)."""
+    dev = resolve_device(device)
+    model = get_backbone(name, dtype=dtype)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)
     return model.to(dev).eval()

@@ -6,9 +6,12 @@ uninitialised; `init_weights(model, generator)` fills them from a
 `torch.Generator` with the JAX package's initialisers, and checkpoints
 come in through `utils.from_flax`.
 
-`BatchNorm` is the inference form (`_InferenceBN`, layers.py:192-222):
-one affine folded from the running statistics in f32, then cast to the
-activation dtype. Batch statistics come with the train slice.
+`BatchNorm` follows the module's mode. In eval mode it is the inference
+form (`_InferenceBN`, layers.py:192-222): one affine folded from the
+running statistics in f32, then cast to the activation dtype. In train
+mode it is flax's `nn.BatchNorm` (layers.py:225-246): f32 batch
+statistics with the biased variance, used both to normalise and for the
+running update `running = 0.9 * running + 0.1 * batch`.
 """
 
 from __future__ import annotations
@@ -51,11 +54,12 @@ class Conv2d(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel, stride=1, padding=0,
                  bias: bool = True, init: str = "torch",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dilation: int = 1):
         super().__init__()
         kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         self.stride = stride
         self.padding = padding
+        self.dilation = dilation
         self.init = init
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
@@ -65,6 +69,8 @@ class Conv2d(nn.Module):
         cout, cin, kh, kw = self.weight.shape
         if self.init == "msra":
             msra_init_(self.weight, kh * kw * cout, generator)
+        elif self.init == "zeros":
+            nn.init.zeros_(self.weight)
         else:
             torch_conv_init_(self.weight, kh * kw * cin, generator)
         if self.bias is not None:
@@ -73,12 +79,13 @@ class Conv2d(nn.Module):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
-                        self.stride, self.padding)
+                        self.stride, self.padding, self.dilation)
 
 
 class BatchNorm(nn.Module):
-    """Inference BN: mul = weight * rsqrt(var + eps), add = bias - mean *
-    mul, computed in f32 and applied in the activation dtype."""
+    """Eval: mul = weight * rsqrt(var + eps), add = bias - mean * mul,
+    computed in f32 and applied in the activation dtype. Train: flax's
+    batch statistics and running update (module docstring)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -95,10 +102,25 @@ class BatchNorm(nn.Module):
         nn.init.ones_(self.running_var)
 
     def forward(self, x):
+        if self.training:
+            return self._train_forward(x)
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         add = self.bias - self.running_mean * mul
         return (x * mul.to(x.dtype)[:, None, None]
                 + add.to(x.dtype)[:, None, None])
+
+    def _train_forward(self, x):
+        # statistics in at least f32, as flax's _compute_stats
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean((0, 2, 3))
+        # flax's fast variance E[x^2] - E[x]^2, clipped at 0: biased
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():       # in place, as torch's BatchNorm2d
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
 
 class ConvBN(nn.Module):

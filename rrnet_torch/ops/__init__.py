@@ -1,2 +1,2 @@
 """Device ops: boxes, heatmap decode, NMS, soft-NMS (CUDA kernel),
-ROI-align."""
+ROI-align, DCNv2 (plain version and CUDA kernels)."""

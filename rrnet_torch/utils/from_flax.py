@@ -7,8 +7,10 @@ port's module of the same name, whose module names follow the flax
 scopes. The conversions:
 
   * conv kernels HWIO -> OIHW: the plain convs, the 7x7 stem as it is
-    stored (not its space-to-depth form), and the heads' `_ConvParam`
-    kernels ((1,1,C,p) out convs, (k,1,C,p) / (1,k,C,p) wh convs);
+    stored (not its space-to-depth form), the heads' `_ConvParam`
+    kernels ((1,1,C,p) out convs, (k,1,C,p) / (1,k,C,p) wh convs), and
+    the trident's shared `weight` (`SharedConv`, one kernel for three
+    branches);
   * Dense kernels (in, out) -> (out, in);
   * BatchNorm `scale`/`bias` and `batch_stats` `mean`/`var` ->
     `weight`/`bias`/`running_mean`/`running_var` (the flax `BatchNorm_0`
@@ -57,7 +59,7 @@ def _convert(collection: str, path: Tuple[str, ...], leaf):
         raise ValueError(f"unmapped leaf {collection}/{'/'.join(path)}")
     if name == "bias" and np.ndim(leaf) == 1:
         return ".".join(scope + ("bias",)), np.asarray(leaf)
-    if name == "kernel" and np.ndim(leaf) == 4:        # HWIO -> OIHW
+    if name in ("kernel", "weight") and np.ndim(leaf) == 4:   # HWIO -> OIHW
         return ".".join(scope + ("weight",)), np.transpose(leaf, (3, 2, 0, 1))
     if name == "kernel" and np.ndim(leaf) == 2:        # Dense (in, out)
         return ".".join(scope + ("weight",)), np.transpose(leaf)

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` into a shared library with a
 plain C interface and loaded with ctypes. Libraries go to
 `build/rrnet_torch/` at the root of the checkout (git-ignored), named by
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is built once.
+a hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
+an edited source is rebuilt and an unchanged one is built once.
+`build_all` starts one `nvcc` per stale library, all at once.
 """
 
 from __future__ import annotations
@@ -15,17 +16,20 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rrnet_torch"
 
-# -fmad=false and no fast math: kernels that mirror a plain PyTorch
-# version round op by op as it does (see csrc/soft_nms.cu).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
-SOURCES = {"soft_nms": "soft_nms.cu"}
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# name: (source, extra flags). -fmad=false and no fast math for a kernel
+# that mirrors its plain PyTorch version bit for bit, rounding op by op as
+# it does (see csrc/soft_nms.cu); the DCN kernels are compared within a
+# tolerance and may contract multiply-adds.
+SOURCES = {"soft_nms": ("soft_nms.cu", ["-fmad=false"]),
+           "dcn_fwd": ("dcn_fwd.cu", []),
+           "dcn_bwd": ("dcn_bwd.cu", [])}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -42,24 +46,44 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + SOURCES[name][1]
+
+
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / SOURCES[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _build(name: str, target: Path) -> None:
+def build_all(names: Sequence[str] = tuple(SOURCES)) -> None:
+    """Build every library of `names` that is not current, one `nvcc`
+    process each, all started together; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.parent / f"{target.stem}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-    res = subprocess.run(cmd, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
-    (BUILD_DIR / f"{name}.log").write_text(res.stdout)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{res.stdout}")
-    os.replace(tmp, target)
+    jobs = []
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.parent / f"{target.stem}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+               str(CSRC / SOURCES[name][0])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, target, tmp, proc))
+    failed = []
+    for name, target, tmp, proc in jobs:
+        out = proc.communicate()[0]
+        (BUILD_DIR / f"{name}.log").write_text(out)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {SOURCES[name][0]}:\n{out}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build_log(name: str) -> List[str]:
@@ -73,9 +97,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if it is not current."""
     lib = _loaded.get(name)
     if lib is None:
-        target = _target(name)
-        if not target.exists():
-            _build(name, target)
-        lib = ctypes.CDLL(str(target))
+        build_all([name])
+        lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
     return lib

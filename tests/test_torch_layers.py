@@ -1,6 +1,7 @@
 """The port's layers, backbone and heads against the flax modules of the
 JAX package: same numpy inputs, flax weights (with randomised BN
-statistics) carried across by rrnet_torch.utils.from_flax.
+statistics) carried across by rrnet_torch.utils.from_flax. The flax
+modules run with train=False, so the port's run in eval mode.
 
 Tolerance: atol/rtol 1e-4 in f32 on feature maps and head outputs, for
 convolutions that sum in another order in the two frameworks.
@@ -74,7 +75,7 @@ def test_conv_bn_relu_matches():
     x = nhwc(0, 2, 9, 11, 6)
     jm = jlayers.ConvBN(8, kernel=3, stride=2)
     v = flax_init(jm, jnp.asarray(x))
-    tm = load_flax_variables(tlayers.ConvBN(6, 8, 3, 2), v)
+    tm = load_flax_variables(tlayers.ConvBN(6, 8, 3, 2), v).eval()
     np.testing.assert_allclose(from_nchw(tm(to_nchw(x))),
                                np.asarray(flax_apply(jm, v, jnp.asarray(x))), **TOL)
 
@@ -96,7 +97,7 @@ def test_hg_residual_matches(cin, feat, stride):
     x = nhwc(2, 2, 10, 10, cin)
     jm = JHGResidual(feat, stride=stride)
     v = flax_init(jm, jnp.asarray(x))
-    tm = load_flax_variables(THGResidual(cin, feat, stride), v)
+    tm = load_flax_variables(THGResidual(cin, feat, stride), v).eval()
     np.testing.assert_allclose(from_nchw(tm(to_nchw(x))),
                                np.asarray(flax_apply(jm, v, jnp.asarray(x))), **TOL)
 
@@ -105,7 +106,7 @@ def test_bottleneck_matches():
     x = nhwc(3, 4, 3, 3, 16)
     jm = jlayers.Bottleneck(planes=8)
     v = flax_init(jm, jnp.asarray(x))
-    tm = load_flax_variables(tlayers.Bottleneck(16, 8), v)
+    tm = load_flax_variables(tlayers.Bottleneck(16, 8), v).eval()
     np.testing.assert_allclose(from_nchw(tm(to_nchw(x))),
                                np.asarray(flax_apply(jm, v, jnp.asarray(x))), **TOL)
 
@@ -117,7 +118,8 @@ def test_tiny_hourglass_matches(hw):
     x = nhwc(4, 2, *hw, 3)
     jm = j_get_backbone("tiny_hourglass", 2)
     v = flax_init(jm, jnp.asarray(x), train=False)
-    tm = load_flax_variables(t_get_backbone("tiny_hourglass", 2), v)
+    tm = load_flax_variables(t_get_backbone("tiny_hourglass", 2),
+                             v).eval()
     want = flax_apply(jm, v, jnp.asarray(x), train=False)
     got = tm(to_nchw(x))
     assert len(got) == 2
@@ -139,7 +141,7 @@ def _head_case(jhead, thead, x):
     jm = _Stacks(jhead)
     v = flax_init(jm, jnp.asarray(x))
     inner = {c: t["head"] for c, t in v.items()}
-    thead = load_flax_variables(thead, inner)
+    thead = load_flax_variables(thead, inner).eval()
     want = flax_apply(jm, v, jnp.asarray(x))
     for i in range(2):
         np.testing.assert_allclose(thead(to_nchw(x), i).detach().numpy(),
@@ -172,7 +174,7 @@ def test_fasterrcnn_head_matches():
     x = nhwc(7, 5, 3, 3, 32)
     jm = jheads.FasterRCNNHead()
     v = flax_init(jm, jnp.asarray(x))
-    tm = load_flax_variables(theads.FasterRCNNHead(32), v)
+    tm = load_flax_variables(theads.FasterRCNNHead(32), v).eval()
     np.testing.assert_allclose(tm(to_nchw(x)).detach().numpy(),
                                np.asarray(flax_apply(jm, v, jnp.asarray(x))), **TOL)
 
