@@ -10,9 +10,10 @@ Phases (any failure exits non-zero before the result line):
      lines;
   3. kernels: each kernel against its plain PyTorch version on the card
      at its path's shapes, plus edge cases, and timed against its bound;
-  4. small-input reference: a tiny RRNet and trires50deform at 64x64,
-     both f32, on the card against the same models on the CPU (the path
-     the CPU tests hold to the JAX package);
+     the class-parallel soft-NMS also against the serial kernel;
+  4. small-input reference: a tiny RRNet, a tiny RRNet train step and
+     trires50deform at 64x64, all f32, on the card against the same
+     models on the CPU (the path the CPU tests hold to the JAX package);
   5. main path: `rrnet_torch.serving.Predictor` on the flagship `rrnet`
      preset with stage-1 soft-NMS (hourglass-104, 2 stacks, topk 1500,
      512 ROIs, bf16, seeded random weights) answers single requests and
@@ -28,7 +29,14 @@ Phases (any failure exits non-zero before the result line):
      same model with the plain DCN, and every DCN-touching gradient to
      the plain DCN's backward behind the kernels' forward (an all-plain
      step's f32 gradients differ by the ReLUs and sample coordinates
-     that flip between two forwards; that comparison is printed).
+     that flip between two forwards; that comparison is printed);
+  7. train path: `rrnet_torch.train.Trainer` on the flagship preset at
+     full width (bf16, stage-1 soft-NMS, stage 2 from step 0) takes 10
+     steps on one seeded batch of 4 uint8 512x512 crops (one soft-NMS
+     launch a forward, a falling total), then a batch of inf pixels that
+     must leave the whole state bitwise as it was; the class-parallel
+     soft-NMS on one step's own decoded candidates must select the ROIs
+     the serial kernel selected in that step.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then one JSON line lists every kernel, and the last line is
 the result. It exits non-zero without a result when no CUDA device is
@@ -179,6 +187,84 @@ def check_soft_nms(torch, sn, rng):
             "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
             "library_ms": None}
+
+
+def check_soft_nms_classes(torch, sn, rng, card):
+    """Kernel B.2 against its plain version (bit for bit) and against the
+    serial kernel B.1 (keep, rank and kept scores equal) on the card, at
+    the stage-1 candidate shape and edge cases; timed beside its plain
+    version and B.1 on the same inputs. Returns the kernel's line."""
+    dev = torch.device("cuda")
+    kw = dict(sigma=0.5, iou_threshold=0.7, score_threshold=0.1)
+    boxes, scores, cls = detections_like(rng, 4, 1500, 10)
+    mask = rng.rand(4, 1500) > 0.2
+    t = (lambda a: None if a is None else
+         torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+    cases = [
+        ("main B=4 K=1500 10 classes", boxes, scores, None, cls, 512,
+         "gaussian"),
+        ("K=1", boxes[:, :1], scores[:, :1], None, cls[:, :1], 512,
+         "gaussian"),
+        ("all invalid", boxes[:, :40], scores[:, :40],
+         np.zeros((4, 40), bool), cls[:, :40], 512, "gaussian"),
+        ("single class", boxes[:, :300], scores[:, :300], None,
+         np.full((4, 300), 4, np.int32), 512, "gaussian"),
+        ("equal scores", boxes[:1, :300], np.full((1, 300), .5, np.float32),
+         None, cls[:1, :300], 512, "gaussian"),
+        ("max_out above survivors", boxes[:, :200], scores[:, :200], None,
+         cls[:, :200], 4000, "gaussian"),
+        ("linear", boxes, scores, mask, cls, 512, "linear"),
+        ("hard", boxes, scores, mask, cls, 512, "hard"),
+        ("valid mask", boxes, scores, mask, cls, 512, "gaussian"),
+    ]
+    for name, b, s, v, c, max_out, method in cases:
+        args = (t(b), t(s), t(v), t(c))
+        ckw = dict(kw, max_out=max_out, method=method)
+        got = sn.soft_nms_classes(*args, num_classes=10, **ckw)
+        torch.cuda.synchronize()
+        ref = sn.soft_nms_classes_reference(*args, num_classes=10, **ckw)
+        ser = sn.soft_nms(*args, **ckw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"soft_nms_classes kernel differs from its "
+                                 f"plain version ({name})")
+        k = got[1]
+        if not (torch.equal(k, ser[1]) and torch.equal(got[2], ser[2])
+                and torch.equal(got[0][k], ser[0][k])):
+            raise AssertionError(f"soft_nms_classes kernel breaks the "
+                                 f"serial kernel's contract ({name})")
+        print(f"  soft_nms_classes {name}: new_scores, keep, rank bit-equal "
+              f"to the plain version; keep {int(k.sum())}, kept ranks and "
+              "scores equal to soft_nms", flush=True)
+
+    args = (t(boxes), t(scores), None, t(cls))
+    ckw = dict(kw, max_out=512, method="gaussian")
+    ms = cuda_ms(lambda: sn.soft_nms_classes(*args, num_classes=10, **ckw),
+                 reps=50)
+    serial_ms = cuda_ms(lambda: sn.soft_nms(*args, **ckw), reps=50)
+    plain_ms = cuda_ms(lambda: sn.soft_nms_classes_reference(
+        *args, num_classes=10, **ckw), reps=3, warm=1)
+    # the work these inputs need: each class's steps touch its open slots
+    work = sn.soft_nms_classes_reference(*args, num_classes=10,
+                                         return_work=True, **ckw)[3]
+    bsz, kk = scores.shape
+    ops = float(work.sum()) * SOFT_NMS_OPS_PER_SLOT_STEP
+    nbytes = bsz * kk * ((16 + 4 + 4) + (4 + 1 + 4))
+    bound_ops = ops / F32_FLOPS_PER_S * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  soft_nms_classes timing at B=4 K=1500 on {card}: kernel "
+          f"{ms:.4f} ms, serial kernel soft_nms on the same inputs "
+          f"{serial_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{max(bound_ops, bound_bytes):.6f} ms (open slot-steps per image "
+          f"{work.tolist()}, {ops:.0f} ops, {nbytes} bytes); no PyTorch "
+          "call computes soft-NMS, so library_ms is null", flush=True)
+    return {"name": "soft_nms_classes", "route": "cuda",
+            "source": "rrnet_torch/csrc/soft_nms_classes.cu",
+            "replaces": "rrnet_tpu/ops/pallas_nms.py:250",
+            "launches": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "library_ms": None, "serial_kernel_ms_same_inputs": serial_ms}
 
 
 def dcn_inputs(torch, rng, b, h, w, cin=256, cout=256, g=4, stride=1,
@@ -378,6 +464,72 @@ def check_small_reference(torch):
           flush=True)
 
 
+def check_small_train(torch):
+    """One tiny RRNet train step (tiny_hourglass, f32, TF32 off, batch
+    2x3x64x64) on the card against the same step on the CPU from the same
+    state: losses within 1e-4, the same ROI selection, every gradient
+    within 1e-3 of its largest magnitude (the backward's scatter-adds run
+    by atomics in another order)."""
+    from rrnet_torch import config
+    from rrnet_torch.profile_train import synthetic_batch
+    from rrnet_torch.train import Trainer
+    cfg = config.rrnet_config(**{
+        "model.backbone": "tiny_hourglass", "model.topk": 64,
+        "model.stage2_rois": 16, "model.dtype": "float32",
+        "model.nms_type_for_stage1": "soft_nms", "train.crop_size": (64, 64),
+        "train.max_objects": 16, "train.stage2_warmup_steps": 0})
+    cpu, gpu = Trainer(cfg, device="cpu"), Trainer(cfg, device="cuda")
+    state = cpu.init_state(generator=torch.Generator().manual_seed(1))
+    params = state.params()
+    with torch.no_grad():         # spread the logits: no near-ties
+        for i in range(2):
+            params[f"hm.out{i}.weight"].mul_(40.0)
+    batch = synthetic_batch(np.random.RandomState(4), b=2, hw=(64, 64),
+                            max_objects=16, n_valid=(10, 16),
+                            size=(2.0, 24.0))
+    outs = {}
+    for name, tr in (("cpu", cpu), ("cuda", gpu)):
+        tr.model.register_forward_hook(
+            lambda m, a, o, name=name: outs.setdefault(name, o))
+    # half of the GT boxes are the step's own ROIs: stage 2 has positives
+    cpu.loss_and_grads(state, batch)
+    rois = outs["cpu"].rois.detach().numpy() * 4.0
+    n = min(8, rois.shape[1])
+    batch["annos"][:, :n, :2] = rois[:, :n, :2]
+    batch["annos"][:, :n, 2:4] = rois[:, :n, 2:] - rois[:, :n, :2]
+    batch["annos"][:, :n, 5] = 1.0
+    batch["valid"][:, :n] = outs["cpu"].roi_valid[:, :n].numpy()
+    outs.clear()
+    gstate = state.to("cuda")
+    tot_c, g_c = cpu.loss_and_grads(state, batch)
+    tot_g, g_g = gpu.loss_and_grads(gstate, batch)
+    a, b = outs["cpu"], outs["cuda"]
+    for name in ("roi_valid", "roi_classes"):
+        if not torch.equal(getattr(a, name), getattr(b, name).cpu()):
+            raise AssertionError(f"tiny train step: {name} differ cuda vs "
+                                 "cpu")
+    torch.testing.assert_close(b.rois.detach().cpu(), a.rois.detach(),
+                               atol=1e-3, rtol=0)
+    errs = sorted(((float((g_g[k].cpu() - g).abs().max())
+                    / max(float(g.abs().max()), 1e-30), k)
+                   for k, g in g_c.items()), reverse=True)
+    if not errs[0][0] <= 1e-3:
+        raise AssertionError(f"tiny train step gradients cuda vs cpu: "
+                             f"{errs[:3]} > 1e-3")
+    _, m_c = cpu.train_step(state, batch)
+    _, m_g = gpu.train_step(gstate, batch)
+    worst = max(abs(float(m_g[k]) - float(m_c[k]))
+                / max(abs(float(m_c[k])), 1e-30) for k in m_c)
+    if not worst <= 1e-4 or float(m_c["s2"]) <= 0:
+        raise AssertionError(f"tiny train step losses cuda vs cpu: {m_c} / "
+                             f"{m_g}")
+    print(f"  tiny RRNet train step f32 cuda == cpu: {int(a.roi_valid.sum())}"
+          f" ROIs equal; losses within {worst:.3g} (s2 "
+          f"{float(m_c['s2']):.4f}); {len(errs)} gradients within "
+          f"{errs[0][0]:.3g} of their largest magnitude (worst "
+          f"{errs[0][1]})", flush=True)
+
+
 def check_small_trident(torch):
     """trires50deform at 2x3x64x64, f32: the card (DCN kernels) against
     the CPU (the plain DCN, which the CPU tests hold to the JAX package)
@@ -444,7 +596,7 @@ def run_main_path(torch, sn, card):
              (720, 1350), (750, 1400), (690, 1290), (760, 1380)]
     images = [(rng.rand(h, w, 3) * 255).astype(np.uint8) for h, w in sizes]
 
-    sn.launches = 0                               # every count to 0
+    sn.launches = sn.classes_launches = 0         # every count to 0
     tdc.fwd_launches = tdc.bwd_launches = 0
     pred.warmup(((765, 1360),), batch_sizes=(1, 4))
     # single requests, twice over the same sizes: the first pass meets
@@ -463,13 +615,14 @@ def run_main_path(torch, sn, card):
     batch_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     launches = sn.launches                        # read just after
-    dcn_launches = tdc.fwd_launches + tdc.bwd_launches
+    others = tdc.fwd_launches + tdc.bwd_launches + sn.classes_launches
     handle.remove()
 
     n_fwd = 2 + 2 * len(images) + 1
-    if dcn_launches:
-        raise AssertionError(f"the RRNet path launched the DCN kernels "
-                             f"{dcn_launches} times")
+    if others:
+        raise AssertionError(f"the RRNet serving path launched the DCN or "
+                             f"class-parallel soft-NMS kernels {others} "
+                             "times")
     if launches != len(forwards) or len(forwards) != n_fwd:
         raise AssertionError(f"soft_nms launches {launches} for "
                              f"{len(forwards)} forwards (want 1 each)")
@@ -593,7 +746,7 @@ def run_trident_path(torch, sn, card):
         return [o.detach() for o in outs], grads, stats
 
     n_serve, n_train = 12, 6
-    sn.launches = 0                       # every count to 0
+    sn.launches = sn.classes_launches = 0     # every count to 0
     tdc.fwd_launches = tdc.bwd_launches = 0
     serve_out, serve_ms = timed(serve, n_serve)
     _, train_ms = timed(train_step, n_train)
@@ -601,7 +754,7 @@ def run_trident_path(torch, sn, card):
     train_out = train_result(train_step())
     torch.cuda.synchronize()
     fwd, bwd = tdc.fwd_launches, tdc.bwd_launches     # read just after
-    soft = sn.launches
+    soft = sn.launches + sn.classes_launches
     n_fwd = n_serve + n_train + 1
     if fwd != 15 * n_fwd or bwd != 15 * (n_train + 1) or soft != 0:
         raise AssertionError(f"trident path launched dcn_fwd {fwd}, dcn_bwd "
@@ -698,6 +851,123 @@ def run_trident_path(torch, sn, card):
     return fwd, bwd
 
 
+def run_train_path(torch, sn, card):
+    """Phase 7: the flagship RRNet's train step at full width; returns the
+    (soft_nms, soft_nms_classes) launch counts of the phase."""
+    from rrnet_torch.ops import deform_conv as tdc
+    from rrnet_torch.ops.heatmap import topk_decode, topk_desc
+    from rrnet_torch.profile_train import synthetic_batch, train_config
+    from rrnet_torch.train import Trainer
+
+    cfg = train_config()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(generator=torch.Generator().manual_seed(
+        cfg.seed))
+    model = trainer.model
+    print(f"  trainer: {state.flat_params.numel()} params, "
+          f"{state.flat_stats.numel()} BN statistics, {cfg.model.dtype} "
+          f"compute, built in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch = synthetic_batch(np.random.RandomState(cfg.seed))
+    n_warm, n_timed, capture_at = 2, 8, 5
+    seen = []
+
+    def hook(module, args, out):
+        if len(seen) == capture_at:       # one step's decoded candidates
+            seen.append((out.hms[-1].detach().float(),
+                         out.whs[-1].detach().float(),
+                         out.offsets[-1].detach().float(),
+                         out.rois.detach(), out.roi_scores, out.roi_classes,
+                         out.roi_valid))
+        else:
+            seen.append(None)
+
+    handle = model.register_forward_hook(hook)
+    sn.launches = sn.classes_launches = 0     # every count to 0
+    tdc.fwd_launches = tdc.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], []
+    for _ in range(n_warm + n_timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+
+    # the class-parallel kernel on that step's own candidates, then the
+    # forward's top-R choice (models/rrnet.py, RRNet.select_rois)
+    hm, wh, off, rois, roi_scores, roi_classes, roi_valid = seen[capture_at]
+    with torch.no_grad():
+        dets = topk_decode(hm, wh, off, k=model.topk)
+        ns, keep, _ = sn.soft_nms_auto(
+            dets.boxes, dets.scores.contiguous(), class_ids=dets.classes,
+            num_classes=cfg.num_classes, class_parallel=True,
+            sigma=model.soft_nms_sigma, iou_threshold=model.nms_iou,
+            score_threshold=model.soft_nms_score_threshold,
+            method="gaussian", max_out=model.stage2_rois)
+        top, idx = topk_desc(torch.where(keep, ns, -torch.inf),
+                             model.stage2_rois)
+        valid = top > -torch.inf
+        sel = (torch.gather(dets.boxes, 1, idx[..., None].expand(-1, -1, 4)),
+               torch.where(valid, top, 0.0),
+               torch.gather(dets.classes, 1, idx), valid)
+    same = [torch.equal(a, b) for a, b in
+            zip(sel, (rois, roi_scores, roi_classes, roi_valid))]
+
+    # a batch of inf pixels: skipped, and the state bitwise as it was
+    def bits():
+        return {k: (v.view(torch.int32) if v.is_floating_point() else v)
+                .clone() for k, v in state.tensors().items()}
+    before = bits()
+    bad = dict(batch, images=np.full(batch["images"].shape, np.inf,
+                                     np.float32))
+    state, m_bad = trainer.train_step(state, bad)
+    torch.cuda.synchronize()
+    after = bits()
+    soft, classes = sn.launches, sn.classes_launches      # read just after
+    dcn = tdc.fwd_launches + tdc.bwd_launches
+    handle.remove()
+
+    n_fwd = len(seen)
+    if soft != n_fwd or classes != 1 or dcn:
+        raise AssertionError(f"train path launched soft_nms {soft} times "
+                             f"in {n_fwd} forwards (want 1 each), "
+                             f"soft_nms_classes {classes} (want 1), DCN "
+                             f"{dcn} (want 0)")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"non-finite train losses: {metrics}")
+    if not metrics[-1]["total"] < metrics[0]["total"] or any(
+            m["skipped"] for m in metrics):
+        raise AssertionError(f"train total did not fall: "
+                             f"{[m['total'] for m in metrics]}")
+    if not all(same):
+        raise AssertionError(f"class-parallel soft-NMS selected other ROIs "
+                             f"than the step's serial kernel (rois, "
+                             f"scores, classes, valid equal: {same})")
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if float(m_bad["skipped"]) != 1.0 or changed:
+        raise AssertionError(f"inf batch: skipped {float(m_bad['skipped'])},"
+                             f" state changed in {changed}")
+    print(f"  losses per step (hm, wh, off, s2, total): "
+          + "; ".join(f"{m['hm']:.4f} {m['wh']:.4f} {m['off']:.4f} "
+                      f"{m['s2']:.4f} {m['total']:.4f}" for m in metrics),
+          flush=True)
+    print(f"  launches: soft_nms {soft} in {n_fwd} forwards, "
+          f"soft_nms_classes {classes}; step {capture_at + 1}'s class-"
+          f"parallel selection == its serial one ({int(roi_valid.sum())} "
+          f"ROIs); inf batch skipped with params, moments, counts, step "
+          f"and BN statistics bitwise unchanged", flush=True)
+    timed = ms[n_warm:]
+    print(f"  train step 4x512x512 on {card}: p50 "
+          f"{float(np.percentile(timed, 50)):.2f} ms, min {min(timed):.2f},"
+          f" max {max(timed):.2f} over {n_timed} after {n_warm} warm-up "
+          f"({[round(x, 2) for x in ms]}); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    return soft, classes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -729,10 +999,12 @@ def main() -> int:
     phase("kernels vs plain")
     rng = np.random.RandomState(0)
     soft = check_soft_nms(torch, sn, rng)
+    classes = check_soft_nms_classes(torch, sn, rng, card)
     dcn_fwd, dcn_bwd = check_dcn(torch, rng, card)
 
     phase("small-input reference")
     check_small_reference(torch)
+    check_small_train(torch)
     check_small_trident(torch)
 
     phase("main path")
@@ -742,7 +1014,12 @@ def main() -> int:
     dcn_fwd["launches"], dcn_bwd["launches"] = run_trident_path(torch, sn,
                                                                 card)
 
-    print(json.dumps({"kernels": [soft, dcn_fwd, dcn_bwd]}), flush=True)
+    phase("train path")
+    soft["train_path_launches"], classes["launches"] = run_train_path(
+        torch, sn, card)
+
+    print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

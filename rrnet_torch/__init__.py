@@ -16,7 +16,8 @@ Ground rules:
     the JAX package's NHWC shapes: `RRNetOutputs.hms/whs/offsets`,
     `ops.heatmap.Detections` and the (B, R, 3, 3, C) ROI-align output.
   * Device. Entry points (`build_model`, `build_backbone`,
-    `evallib.infer.Evaluator`, `serving.Predictor`) default to `device="cuda"` and raise when no
+    `evallib.infer.Evaluator`, `serving.Predictor`, `train.Trainer`)
+    default to `device="cuda"` and raise when no
     card is present; they never carry on on the CPU unless the caller
     asks for it (the tests pass `device="cpu"`).
   * Kernels. Every Pallas kernel of the JAX package on a ported path is a
@@ -29,9 +30,13 @@ Ground rules:
 
 Ported so far: the serving path of the flagship `rrnet` preset
 (hourglass-104, 2 stacks) at deployment settings (one scale, no flip),
-with stage-1 soft-NMS as the CUDA kernel `csrc/soft_nms.cu`; and the
+with stage-1 soft-NMS as the CUDA kernel `csrc/soft_nms.cu`; the
 trident backbones (`models.build_backbone("trires50deform")` and kin),
 served and trained in f32, with the modulated deformable conv's forward
 and backward as the CUDA kernels `csrc/dcn_fwd.cu` and `csrc/dcn_bwd.cu`
-(`ops.deform_conv`; the plain version is `ops.dcn`).
+(`ops.deform_conv`; the plain version is `ops.dcn`); the flagship RRNet's
+train step on one card (`train.Trainer`: targets, losses, criterions,
+schedule, skip-aware Adam, `utils.checkpoint`); and the class-parallel
+soft-NMS (`ops.soft_nms.soft_nms_auto(..., class_parallel=True)`) as the
+CUDA kernel `csrc/soft_nms_classes.cu`.
 """

@@ -1,0 +1,65 @@
+"""Detection losses (port of `rrnet_tpu/losses.py:24-115`), NHWC maps.
+
+  * `clamped_sigmoid`: sigmoid clamped to [eps, 1 - eps] before the
+    heatmap focal loss;
+  * `focal_loss_hm`: CornerNet/CenterNet heatmap focal loss, normalised
+    by the positive count, or the raw negative sum when there is none;
+  * `reg_l1_loss`: masked L1 at the GT centre indices, divided by the
+    mask broadcast over channels (positives x C) + 1e-4;
+  * `smooth_l1_loss`: torch's smooth-L1.
+
+Integer powers are written as products, in the order XLA's
+`integer_pow` multiplies. The RetinaNet `focal_loss` waits for its model.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def clamped_sigmoid(logits: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    return torch.sigmoid(logits).clamp(eps, 1.0 - eps)
+
+
+def focal_loss_hm(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """pred (B, H, W, C) probabilities (sigmoided and clamped), gt the
+    gaussian target; positives are gt == 1, negatives weighted (1-gt)^4."""
+    pos = (gt == 1.0).to(pred.dtype)
+    neg = 1.0 - pos
+    one_m_gt = 1.0 - gt
+    sq = one_m_gt * one_m_gt
+    neg_weights = sq * sq
+    one_m_p = 1.0 - pred
+
+    pos_loss = torch.sum(torch.log(pred) * (one_m_p * one_m_p) * pos)
+    neg_loss = torch.sum(torch.log(1.0 - pred) * (pred * pred) * neg_weights
+                         * neg)
+    num_pos = torch.sum(pos)
+    return torch.where(num_pos == 0, -neg_loss,
+                       -(pos_loss + neg_loss) / num_pos.clamp(min=1.0))
+
+
+def reg_l1_loss(pred_map: torch.Tensor, mask: torch.Tensor,
+                ind: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """pred_map (B, H, W, C), mask (B, N) or (B, N, 1), ind (B, N) flat
+    y*W+x, target (B, N, C)."""
+    b, h, w, c = pred_map.shape
+    pred = torch.gather(pred_map.reshape(b, h * w, c), 1,
+                        ind.long()[..., None].expand(-1, -1, c))
+    if mask.dim() == 2:
+        mask = mask[..., None]
+    m = mask.to(pred.dtype).expand_as(pred)
+    loss = torch.sum(torch.abs(pred * m - target * m))
+    return loss / (torch.sum(m) + 1e-4)
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                   beta: float = 1.0, reduction: str = "mean") -> torch.Tensor:
+    diff = torch.abs(pred - target)
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
+                       diff - 0.5 * beta)
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss

@@ -1,12 +1,16 @@
 """RRNet, the hybrid two-stage detector (port of
-`rrnet_tpu/models/rrnet.py:30-184`), inference forward.
+`rrnet_tpu/models/rrnet.py:30-184`), eval and train forward.
 
 Stage 1: stacked-hourglass CenterNet heads per stack; the last stack is
 decoded to top-k candidates, NMS'd per image on the device (soft-NMS by
-the CUDA kernel of `ops/soft_nms.py`, or the hard-NMS fixpoint), and cut
-to a static budget of R ROIs. Stage 2: 3x3 ROI-align over relu(last
-feature) and a bottleneck regressor. Decode, NMS and ROI-align run in
-f32 whatever the compute dtype.
+the CUDA kernels of `ops/soft_nms.py` through `soft_nms_auto`, or the
+hard-NMS fixpoint), and cut to a static budget of R ROIs. Stage 2: 3x3
+ROI-align over relu(last feature) and a bottleneck regressor. Decode, NMS
+and ROI-align run in f32 whatever the compute dtype; in train mode the
+last feature is cast to f32 before ROI-align, so that its backward
+scatter-adds in f32. Gradients reach the wh and offset heads through the
+ROI coordinates, as in the JAX package; the NMS and the top-R choice run
+on detached tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from rrnet_torch.models.heads import CenterNetHead, CenterNetWHHead, FasterRCNNH
 from rrnet_torch.ops.heatmap import topk_decode, topk_desc
 from rrnet_torch.ops.nms import hard_nms
 from rrnet_torch.ops.roi_align import roi_align
-from rrnet_torch.ops.soft_nms import soft_nms
+from rrnet_torch.ops.soft_nms import soft_nms_auto
 
 
 def mask_heatmap_extent(hm: torch.Tensor, valid_hw: torch.Tensor,
@@ -60,6 +64,7 @@ class RRNet(nn.Module):
         super().__init__()
         if nms_type not in ("nms", "soft_nms"):
             raise ValueError(f"unknown stage-1 nms_type {nms_type!r}")
+        self.num_classes = num_classes
         self.num_stacks = num_stacks
         self.topk = topk
         self.stage2_rois = stage2_rois
@@ -81,18 +86,23 @@ class RRNet(nn.Module):
     def select_rois(self, boxes, scores, classes):
         """Per image: stage-1 NMS, then the R best kept candidates (lower
         index first among equal scores). Returns (rois, roi_scores with 0
-        where invalid, roi_classes, roi_valid)."""
+        where invalid, roi_classes, roi_valid). The choice runs on
+        detached tensors; the ROIs are gathered from `boxes` itself, so
+        gradients flow into them. Soft-NMS takes the serial kernel, as the
+        JAX model does (`soft_nms_auto` without `class_parallel`)."""
         cls_ids = classes if self.nms_per_class else None
+        b_nd, s_nd = boxes.detach(), scores.detach()
         if self.nms_type == "soft_nms":
-            new_scores, keep, _ = soft_nms(
-                boxes, scores, class_ids=cls_ids, sigma=self.soft_nms_sigma,
+            new_scores, keep, _ = soft_nms_auto(
+                b_nd, s_nd, class_ids=cls_ids, num_classes=self.num_classes,
+                sigma=self.soft_nms_sigma,
                 iou_threshold=self.nms_iou,
                 score_threshold=self.soft_nms_score_threshold,
                 method="gaussian", max_out=self.stage2_rois)
             masked = torch.where(keep, new_scores, -torch.inf)
         else:
-            keep = hard_nms(boxes, scores, self.nms_iou, class_ids=cls_ids)
-            masked = torch.where(keep, scores, -torch.inf)
+            keep = hard_nms(b_nd, s_nd, self.nms_iou, class_ids=cls_ids)
+            masked = torch.where(keep, s_nd, -torch.inf)
         top, idx = topk_desc(masked, self.stage2_rois)
         valid = top > -torch.inf
         rois = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
@@ -120,7 +130,10 @@ class RRNet(nn.Module):
             dets.boxes.contiguous(), dets.scores.contiguous(),
             dets.classes.contiguous())
 
-        last = F.relu(feats[-1]).permute(0, 2, 3, 1).contiguous()
+        last = F.relu(feats[-1])
+        if self.training:
+            last = last.float()
+        last = last.permute(0, 2, 3, 1).contiguous()
         roi_feat = roi_align(last, rois, output_size=(3, 3))  # (B, R, 3, 3, C)
         b, r, _, _, c = roi_feat.shape
         s2 = self.head_detector(

@@ -50,14 +50,16 @@ def roi_align(feat: torch.Tensor, rois: torch.Tensor,
     xs = xs.clamp(0.0, w - 1)
     y0 = torch.floor(ys)
     x0 = torch.floor(xs)
-    y1i = torch.clamp(y0 + 1, max=h - 1).long()
-    x1i = torch.clamp(x0 + 1, max=w - 1).long()
+    # a NaN coordinate reads corner 0, as XLA converts NaN to the integer
+    # 0 (and clamps its gathers); its NaN weights keep the sample NaN
+    y0i = torch.nan_to_num(y0, nan=0.0).long()
+    x0i = torch.nan_to_num(x0, nan=0.0).long()
+    y1i = torch.clamp(y0i + 1, max=h - 1)
+    x1i = torch.clamp(x0i + 1, max=w - 1)
     ly = ys - y0
     lx = xs - x0
     hy = 1.0 - ly
     hx = 1.0 - lx
-    y0i = y0.long()
-    x0i = x0.long()
 
     flat = feat.reshape(bsz, h * w, c)
     bidx = torch.arange(bsz, device=dev)[:, None]

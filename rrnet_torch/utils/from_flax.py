@@ -19,6 +19,15 @@ scopes. The conversions:
 A leaf no rule maps raises; `load_flax_variables` also raises on a
 parameter the model has and the tree lacks, or the other way round, and
 on any shape that differs.
+
+`load_flax_train_state` carries a whole JAX `TrainState` across into the
+port's `train.TrainState`: params and batch_stats by the rules above,
+Adam's `mu` and `nu` by the params' key map, Adam's count, the schedule's
+count and the step. Its input is the JAX package's checkpoint payload
+(`rrnet_tpu/utils/checkpoint.py`) as numpy: `{"step", "params",
+"batch_stats", "opt_state"}` with `opt_state` the optax chain's
+`(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))`, as
+named tuples or dicts.
 """
 
 from __future__ import annotations
@@ -112,3 +121,52 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
                        {k: v.shape for k, v in sd.items()})
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _fields(node, names: Tuple[str, ...], what: str) -> Dict:
+    if hasattr(node, "_asdict"):
+        d = dict(node._asdict())
+    elif isinstance(node, Mapping):
+        d = dict(node)
+    else:
+        raise ValueError(f"unmapped {what}: {type(node).__name__}")
+    if set(d) != set(names):
+        raise ValueError(f"unmapped {what} leaves: have {sorted(d)}, "
+                         f"want {sorted(names)}")
+    return d
+
+
+def load_flax_train_state(state, tree):
+    """Fill the port's TrainState `state` (its layout fixes the expected
+    names and shapes) from the JAX package's train state `tree` (see the
+    module docstring); raises on a leaf left unmapped, a missing or extra
+    key, or a shape that differs. Returns the state."""
+    top = _fields(tree, ("step", "params", "batch_stats", "opt_state"),
+                  "train state")
+    opt = top["opt_state"]
+    if not isinstance(opt, (tuple, list)) or len(opt) != 2:
+        raise ValueError("unmapped optimizer state: want (adam, schedule)")
+    adam = _fields(opt[0], ("count", "mu", "nu"), "Adam state")
+    sched = _fields(opt[1], ("count",), "schedule state")
+
+    sd = numpy_state_from_flax({"params": top["params"],
+                                "batch_stats": top["batch_stats"]})
+    moments = [numpy_state_from_flax({"params": adam[k]})
+               for k in ("mu", "nu")]
+    params = dict(state.layout.params)
+    check_state_shapes({**params, **dict(state.layout.stats)},
+                       {k: a.shape for k, a in sd.items()})
+    for m in moments:
+        check_state_shapes(params, {k: a.shape for k, a in m.items()})
+
+    def put(views, arrays):
+        for k, v in views.items():
+            v.copy_(torch.from_numpy(np.array(arrays[k], dtype=np.float32)))
+
+    put(state.state_dict(), sd)
+    for views, m in zip(state.moments(), moments):
+        put(views, m)
+    state.step.fill_(int(top["step"]))
+    state.count.fill_(int(adam["count"]))
+    state.sched_count.fill_(int(sched["count"]))
+    return state

@@ -126,7 +126,8 @@ def test_converter_raises_on_missing_extra_or_unknown_leaf():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of rrnet_torch and chip_smoke.py in a fresh
-    interpreter; neither jax nor rrnet_tpu may end up loaded."""
+    interpreter; neither jax (nor flax, optax, orbax) nor rrnet_tpu may
+    end up loaded."""
     code = r"""
 import importlib, pathlib, sys
 root = pathlib.Path("rrnet_torch")
@@ -135,8 +136,9 @@ mods = sorted(".".join(p.with_suffix("").parts).removesuffix(".__init__")
 for m in mods + ["chip_smoke"]:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "rrnet_tpu"))
-print(len(mods), bad)
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "orbax", "rrnet_tpu"))
+print(len(mods), bad, mods)
 assert not bad, bad
 """
     env = {k: val for k, val in os.environ.items() if k != "PYTHONPATH"}
@@ -144,7 +146,12 @@ assert not bad, bad
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 20
+    assert n_mods >= 30
+    for mod in ("rrnet_torch.train.trainer", "rrnet_torch.train.state",
+                "rrnet_torch.train.criterions", "rrnet_torch.train.schedule",
+                "rrnet_torch.utils.checkpoint", "rrnet_torch.ops.targets",
+                "rrnet_torch.losses", "rrnet_torch.profile_train"):
+        assert mod in res.stdout, mod
 
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):
