@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before DIR]
 
 Phases (any failure exits non-zero before the result line):
   1. device: the card's name and power limit from nvidia-smi;
@@ -10,7 +10,11 @@ Phases (any failure exits non-zero before the result line):
      lines;
   3. kernels: each kernel against its plain PyTorch version on the card
      at its path's shapes, plus edge cases, and timed against its bound;
-     the class-parallel soft-NMS also against the serial kernel;
+     the class-parallel soft-NMS also against the serial kernel; the DCN
+     kernels against both bound routes (f32 on the CUDA cores, 3xTF32 on
+     the tensor cores), the backward's two kernels apart, and, with
+     `--before DIR`, beside another version of their sources built from
+     DIR (one "dcn before/after" line a path shape);
   4. small-input reference: a tiny RRNet, a tiny RRNet train step and
      trires50deform at 64x64, all f32, on the card against the same
      models on the CPU (the path the CPU tests hold to the JAX package);
@@ -52,9 +56,11 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# Roofline of one H100 SXM at its 700 W limit (NVIDIA data sheet).
+# Roofline of one H100 SXM at its 700 W limit (NVIDIA H100 Tensor Core
+# GPU data sheet, SXM5, dense rates).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12       # tensor cores, TF32 inputs, f32 accumulate
 # f32 operations per candidate slot (active, unselected) and step of
 # soft-NMS: the argmax compare, IoU (min/max/sub/add on both axes, clamps, inter, union,
 # divide, overlap tests), the gaussian weight (mul, div, exp), the decay
@@ -295,9 +301,15 @@ def dcn_inputs(torch, rng, b, h, w, cin=256, cout=256, g=4, stride=1,
 
 
 def dcn_bounds(x, wt, off, mask, kw):
-    """(fwd, bwd) least times in ms from these inputs' shapes, each with
-    what bounds it: the larger of bytes over HBM rate and f32 operations
-    over the f32 rate."""
+    """{"fwd", "bwd"} -> least time in ms from these inputs' shapes by two
+    routes for the same f32-accurate work, each the larger of its times:
+      "f32":    all operations on the CUDA cores (F32_FLOPS_PER_S), bytes
+                over the HBM rate;
+      "3xtf32": the GEMMs as three TF32 products on the tensor cores
+                (TF32_FLOPS_PER_S), the side operations on the CUDA cores
+                (the two pipes run at once, so the larger of these two
+                times), bytes over the HBM rate;
+    and "bound", the lower of the two, with what bounds it."""
     b, cin, h, w = x.shape
     cout = wt.shape[0]
     _, _, ho, wo = off.shape
@@ -312,22 +324,109 @@ def dcn_bounds(x, wt, off, mask, kw):
              ins + 4 * b * cout * ho * wo),
             ("bwd", 2, DCN_BWD_OPS_PER_SAMPLE_CHANNEL,
              2 * ins + 4 * b * cout * ho * wo)):
-        ops = (gemms * gemm + samples * cin * per_ch
-               + samples * g * DCN_OPS_PER_SAMPLE)
-        t_ops = ops / F32_FLOPS_PER_S * 1e3
+        side = samples * cin * per_ch + samples * g * DCN_OPS_PER_SAMPLE
+        ops = gemms * gemm + side
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        out[name] = (max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes", ops,
-                     nbytes)
+        routes = {
+            "f32": {"operations": ops / F32_FLOPS_PER_S * 1e3,
+                    "bytes": t_bytes},
+            "3xtf32": {"operations": max(3 * gemms * gemm / TF32_FLOPS_PER_S,
+                                         side / F32_FLOPS_PER_S) * 1e3,
+                       "bytes": t_bytes}}
+        r = {k: (max(v.values()), max(v, key=v.get)) for k, v in
+             routes.items()}
+        best = min(r, key=lambda k: r[k][0])
+        out[name] = dict(r, bound=(r[best][0], r[best][1], best), ops=ops,
+                         nbytes=nbytes)
     return out
 
 
-def check_dcn(torch, rng, card):
+def before_dcn(torch, src):
+    """(forward, backward) of the DCN kernels built from the sources in
+    `src` (another version of rrnet_torch/csrc's dcn_fwd.cu, dcn_bwd.cu
+    and dcn_common.cuh, e.g. the parent commit's) into src/build, taking
+    the arguments of `deform_conv2d` (no autograd) and of
+    `deform_conv2d_backward` and doing the same layout work around the
+    launch, so that the two versions are timed on equal terms. They count
+    no launch."""
+    import ctypes
+    from pathlib import Path
+    from rrnet_torch.ops import deform_conv as tdc
+    from rrnet_torch.utils import native
+    src = Path(src)
+    libs = native.build_all(("dcn_fwd", "dcn_bwd"), src, src / "build")
+    geom_types = [ctypes.c_int] * 13
+    fwd_c = ctypes.CDLL(str(libs["dcn_fwd"])).rrnet_dcn_fwd
+    fwd_c.argtypes = [ctypes.c_void_p] * 6 + geom_types + [ctypes.c_void_p]
+    bwd_c = ctypes.CDLL(str(libs["dcn_bwd"])).rrnet_dcn_bwd
+    bwd_c.argtypes = [ctypes.c_void_p] * 9 + geom_types + [ctypes.c_void_p]
+
+    def launch(fn, tensors, geom):
+        ptrs = [None if t is None else t.data_ptr() for t in tensors]
+        err = fn(*ptrs, *geom, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{src}: DCN kernel launch failed: {err}")
+
+    def geometry(x, wt, off, mask, bias, kw):
+        return tdc._geometry(x, wt, off, mask, bias, kw["stride"],
+                             kw["padding"], kw["dilation"],
+                             kw["deformable_groups"])
+
+    def forward(x, wt, off, mask, bias, **kw):
+        geom = geometry(x, wt, off, mask, bias, kw)
+        b, _, _, _, cout, _, _, ho, wo = geom[:9]
+        out = x.new_empty((b, cout, ho, wo))
+        launch(fwd_c, (x.permute(0, 2, 3, 1).contiguous(),
+                       wt.permute(2, 3, 1, 0).contiguous(), off, mask, bias,
+                       out), geom)
+        return out
+
+    def backward(x, wt, off, mask, ct, **kw):
+        geom = geometry(x, wt, off, mask, None, kw)
+        b, h, w, cin, cout, kh, kw_ = geom[:7]
+        gx = x.new_empty((b, h, w, cin))
+        gw = x.new_empty((kh, kw_, cin, cout))
+        goff = torch.empty_like(off)
+        gmask = None if mask is None else torch.empty_like(mask)
+        launch(bwd_c, (x.permute(0, 2, 3, 1).contiguous(),
+                       wt.permute(2, 3, 0, 1).contiguous(), off, mask, ct, gx,
+                       gw, goff, gmask), geom)
+        return (gx.permute(0, 3, 1, 2).contiguous(),
+                gw.permute(3, 2, 0, 1).contiguous(), goff, gmask)
+
+    return forward, backward
+
+
+def profile_split(torch, fn, reps=5):
+    """{kernel name: ms per launch} of `fn`'s DCN kernels, by
+    torch.profiler over `reps` calls after one warm-up."""
+    from rrnet_torch.profile_trident import kernel_name
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # each call launches each kernel once: per launch is per call
+    return {kernel_name(e.key):
+            e.self_device_time_total / 1e3 / max(e.count, 1)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "dcn_" in e.key}
+
+
+def check_dcn(torch, rng, card, before=None):
     """Kernels B.3 / B.4 against the plain DCN and its autograd on the
     card, at the trident path's shapes (serve 1x256x48x88, train
     4x256x32x32, dilations 1-3) and edge cases; each path shape timed
-    beside its bound, the plain version and F.conv2d (cuDNN, TF32 off)
-    at the same shape and dilation. Returns the two kernels' lines."""
+    beside both bound routes, the plain version and F.conv2d (cuDNN, TF32
+    off) at the same shape and dilation, the backward's data and weight
+    kernels apart. `before`, another build of the kernels
+    (`before_dcn`), is timed on the same inputs in turns
+    (before, after, after, before) and printed beside them, one line a
+    shape. Returns the two kernels' lines."""
     import torch.nn.functional as F
     from rrnet_torch.ops import dcn
     from rrnet_torch.ops import deform_conv as tdc
@@ -348,6 +447,11 @@ def check_dcn(torch, rng, card):
                              stride=2)),
         ("no mask, odd channels", dict(b=3, h=9, w=11, cin=40, cout=70, g=2,
                                        masked=False)),
+        ("cpg 6 (scalar paths), Cout 20", dict(b=2, h=7, w=13, cin=18,
+                                               cout=20, g=3)),
+        # grad weight summed over 32768 positions: the weight kernel's
+        # blocks each take a run of ~140 units
+        ("long runs, B 32", dict(b=32, h=32, w=32)),
     ]
     # f32 sums of up to 2304 (forward) and 4224 x 4 (grad weight) products
     # in another order; the backward's atomics add in a run-dependent order
@@ -380,15 +484,18 @@ def check_dcn(torch, rng, card):
         if not name.startswith(("serve", "train")):
             continue
         # timing at the path's shapes
+        def fwd(k=tdc.deform_conv2d):
+            with torch.no_grad():
+                return k(x, wt, off, mask, None, **kw)
+
+        def bwd(k=tdc.deform_conv2d_backward):
+            return k(x, wt, off, mask, ct, **kw)
+
         with torch.no_grad():
-            fwd_ms = cuda_ms(lambda: tdc.deform_conv2d(x, wt, off, mask,
-                                                       None, **kw), reps=20)
             plain_fwd = cuda_ms(lambda: dcn.deform_conv2d(
                 x, wt, off, mask, None, **kw), reps=5)
             conv_fwd = cuda_ms(lambda: F.conv2d(
                 x, wt, None, 1, kw["padding"], kw["dilation"]), reps=20)
-        bwd_ms = cuda_ms(lambda: tdc.deform_conv2d_backward(
-            x, wt, off, mask, ct, **kw), reps=20)
         leaves = [a.detach().requires_grad_() for a in (x, wt, off, mask)]
         with torch.enable_grad():
             graph = dcn.deform_conv2d(*leaves, None, **kw)
@@ -399,29 +506,77 @@ def check_dcn(torch, rng, card):
             ct, x, wt, None, [1, 1], [kw["padding"]] * 2,
             [kw["dilation"]] * 2, False, [0, 0], 1, [True, True, False]),
             reps=20)
+        versions = {"after": (fwd, bwd)}
+        if before is not None:
+            versions["before"] = (lambda: fwd(before[0]),
+                                  lambda: bwd(before[1]))
+        order = (["before", "after", "after", "before"] if before else
+                 ["after"])
+        times = {v: {"fwd": [], "bwd": []} for v in versions}
+        for v in order:
+            times[v]["fwd"].append(cuda_ms(versions[v][0], reps=20))
+            times[v]["bwd"].append(cuda_ms(versions[v][1], reps=20))
+        ms = {v: {k: float(np.mean(t)) for k, t in d.items()}
+              for v, d in times.items()}
+        split = {v: profile_split(torch, versions[v][1]) for v in versions}
         bounds = dcn_bounds(x, wt, off, mask, kw)
-        rows[name] = dict(fwd=(fwd_ms, plain_fwd, conv_fwd, bounds["fwd"],
+        rows[name] = dict(ms=ms, split=split, bounds=bounds,
+                          fwd=(ms["after"]["fwd"], plain_fwd, conv_fwd,
                                abs_fwd),
-                          bwd=(bwd_ms, plain_bwd, conv_bwd, bounds["bwd"],
+                          bwd=(ms["after"]["bwd"], plain_bwd, conv_bwd,
                                abs_bwd))
         for k in ("fwd", "bwd"):
-            ms, pm, cm, (bm, by, ops, nb), _ = rows[name][k]
-            print(f"  dcn_{k} {name} on {card}: kernel {ms:.4f} ms, plain "
+            t, pm, cm, _ = rows[name][k]
+            bd = bounds[k]
+            print(f"  dcn_{k} {name} on {card}: kernel {t:.4f} ms, plain "
                   f"{pm:.3f} ms, F.conv2d{' backward' if k == 'bwd' else ''}"
-                  f" {cm:.4f} ms, bound {bm:.6f} ms ({by}; {ops:.4g} ops, "
-                  f"{nb} bytes)", flush=True)
+                  f" {cm:.4f} ms, bound {bd['bound'][0]:.6f} ms "
+                  f"({bd['bound'][2]} route, {bd['bound'][1]}); f32 route "
+                  f"{bd['f32'][0]:.6f} ms ({bd['f32'][1]}), 3xTF32 route "
+                  f"{bd['3xtf32'][0]:.6f} ms ({bd['3xtf32'][1]}); "
+                  f"{bd['ops']:.4g} ops, {bd['nbytes']} bytes", flush=True)
+        sp = split["after"]
+        print(f"  dcn_bwd {name} kernels (torch.profiler): "
+              + ", ".join(f"{n} {v:.4f} ms" for n, v in sorted(sp.items())),
+              flush=True)
+        if before is not None:
+            b_, a_ = ms["before"], ms["after"]
+            sb = split["before"]
+            print(f"  dcn before/after {name} on {card}: fwd "
+                  f"{b_['fwd']:.4f} -> {a_['fwd']:.4f} ms "
+                  f"({b_['fwd'] / a_['fwd']:.2f}x); bwd {b_['bwd']:.4f} -> "
+                  f"{a_['bwd']:.4f} ms ({b_['bwd'] / a_['bwd']:.2f}x; data "
+                  f"{sb.get('dcn_bwd_data_kernel', 0):.4f} -> "
+                  f"{sp.get('dcn_bwd_data_kernel', 0):.4f}, weight "
+                  f"{sb.get('dcn_bwd_weight_kernel', 0):.4f} -> "
+                  f"{sp.get('dcn_bwd_weight_kernel', 0):.4f}); bounds fwd "
+                  f"f32 {bounds['fwd']['f32'][0]:.6f} / 3xTF32 "
+                  f"{bounds['fwd']['3xtf32'][0]:.6f}, bwd f32 "
+                  f"{bounds['bwd']['f32'][0]:.6f} / 3xTF32 "
+                  f"{bounds['bwd']['3xtf32'][0]:.6f} ms", flush=True)
 
     def line(k, source, replaces, shape):
-        ms, pm, cm, (bm, by, _, _), e = rows[shape][k]
-        return {"name": f"dcn_{k}", "route": "cuda", "source": source,
-                "replaces": replaces, "launches": None, "max_abs_err": e,
-                "ms": ms, "plain_ms": pm, "bound_ms": bm, "bound_by": by,
-                "library_ms": None, "shape": shape,
-                "yardstick_conv2d_ms": cm,
-                "by_shape": {n: {"ms": r[k][0], "plain_ms": r[k][1],
-                                 "bound_ms": r[k][3][0],
-                                 "yardstick_conv2d_ms": r[k][2]}
-                             for n, r in rows.items()}}
+        t, pm, cm, e = rows[shape][k]
+        bd = rows[shape]["bounds"][k]
+        entry = {"name": f"dcn_{k}", "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": None, "max_abs_err": e,
+                 "ms": t, "plain_ms": pm, "bound_ms": bd["bound"][0],
+                 "bound_by": bd["bound"][1], "bound_route": bd["bound"][2],
+                 "bound_ms_f32": bd["f32"][0],
+                 "bound_ms_3xtf32": bd["3xtf32"][0],
+                 "library_ms": None, "shape": shape,
+                 "yardstick_conv2d_ms": cm,
+                 "by_shape": {n: {"ms": r[k][0], "plain_ms": r[k][1],
+                                  "bound_ms": r["bounds"][k]["bound"][0],
+                                  "yardstick_conv2d_ms": r[k][2],
+                                  **({"before_ms": r["ms"]["before"][k]}
+                                     if "before" in r["ms"] else {}),
+                                  **({"kernels_ms": r["split"]["after"]}
+                                     if k == "bwd" else {})}
+                              for n, r in rows.items()}}
+        if "before" in rows[shape]["ms"]:
+            entry["before_ms"] = rows[shape]["ms"]["before"][k]
+        return entry
     return (line("fwd", "rrnet_torch/csrc/dcn_fwd.cu",
                  "rrnet_tpu/ops/pallas_dcn.py:109", "serve d2"),
             line("bwd", "rrnet_torch/csrc/dcn_bwd.cu",
@@ -968,7 +1123,15 @@ def run_train_path(torch, sn, card):
     return soft, classes
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--before", metavar="DIR", help="a directory holding "
+                    "another version of rrnet_torch/csrc's DCN sources "
+                    "(dcn_fwd.cu, dcn_bwd.cu, dcn_common.cuh), e.g. the "
+                    "parent commit's; its kernels are built into DIR/build "
+                    "and timed beside this checkout's, in turns")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -993,14 +1156,20 @@ def main() -> int:
           flush=True)
     for name in native.SOURCES:
         for line in native.build_log(name):
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    before = None
+    if args.before:
+        t0 = time.perf_counter()
+        before = before_dcn(torch, args.before)
+        print(f"  the DCN kernels of {args.before} built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("kernels vs plain")
     rng = np.random.RandomState(0)
     soft = check_soft_nms(torch, sn, rng)
     classes = check_soft_nms_classes(torch, sn, rng, card)
-    dcn_fwd, dcn_bwd = check_dcn(torch, rng, card)
+    dcn_fwd, dcn_bwd = check_dcn(torch, rng, card, before)
 
     phase("small-input reference")
     check_small_reference(torch)

@@ -55,15 +55,13 @@ def _bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
     return torch.where(valid[:, None, :], out, 0.0)
 
 
-def deform_conv2d(x: torch.Tensor, weight: torch.Tensor,
-                  offset: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                  bias: Optional[torch.Tensor] = None, stride: int = 1,
-                  padding: int = 1, dilation: int = 1,
-                  deformable_groups: int = 1) -> torch.Tensor:
-    """Modulated deformable conv (DCNv2), (B, Cout, Ho, Wo); see the
-    module docstring for the layouts."""
+def sampled_columns(x: torch.Tensor, offset: torch.Tensor,
+                    mask: Optional[torch.Tensor], kh: int, kw: int,
+                    stride: int = 1, padding: int = 1, dilation: int = 1,
+                    deformable_groups: int = 1) -> torch.Tensor:
+    """The sampled, mask-multiplied columns (B, G, cpg, kh*kw, Ho*Wo):
+    the operand that `deform_conv2d` contracts with the weight."""
     b, cin, h, w = x.shape
-    cout, _, kh, kw = weight.shape
     g = deformable_groups
     kk = kh * kw
     cpg = cin // g
@@ -85,8 +83,23 @@ def deform_conv2d(x: torch.Tensor, weight: torch.Tensor,
     s = _bilinear_sample(x.reshape(b * g, cpg, h, w), ys, xs)
     if mask is not None:
         s = s * mask.reshape(b * g, 1, kk * ho * wo)
-    s = s.reshape(b, g, cpg, kk, ho * wo)
-    wmat = weight.reshape(cout, g, cpg, kk)
+    return s.reshape(b, g, cpg, kk, ho * wo)
+
+
+def deform_conv2d(x: torch.Tensor, weight: torch.Tensor,
+                  offset: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None, stride: int = 1,
+                  padding: int = 1, dilation: int = 1,
+                  deformable_groups: int = 1) -> torch.Tensor:
+    """Modulated deformable conv (DCNv2), (B, Cout, Ho, Wo); see the
+    module docstring for the layouts."""
+    b, cin, h, w = x.shape
+    cout, _, kh, kw = weight.shape
+    g = deformable_groups
+    ho, wo = out_size(h, w, kh, kw, stride, padding, dilation)
+    s = sampled_columns(x, offset, mask, kh, kw, stride, padding, dilation,
+                        g)
+    wmat = weight.reshape(cout, g, cin // g, kh * kw)
     out = torch.einsum("bgctp,ogct->bop", s, wmat).reshape(b, cout, ho, wo)
     if bias is not None:
         out = out + bias[:, None, None]

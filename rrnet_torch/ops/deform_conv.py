@@ -27,7 +27,7 @@ from rrnet_torch.utils import native
 
 __all__ = ["deform_conv2d", "deform_conv2d_backward",
            "deform_conv2d_backward_reference", "fwd_launches",
-           "bwd_launches"]
+           "bwd_launches", "max_cout"]
 
 fwd_launches = 0
 bwd_launches = 0
@@ -51,6 +51,12 @@ def _kernel(name: str):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def max_cout() -> int:
+    """The largest Cout the backward kernel takes (its shared memory
+    holds the cotangent of a block's positions); builds it at first use."""
+    return _kernel("dcn_bwd").max_cout
 
 
 def _geometry(x, weight, offset, mask, bias, stride, padding, dilation,

@@ -10,7 +10,9 @@ loss), as medians over N iterations:
   * wall time per iteration without the profiler (host clock around
     work that ends in a synchronize);
   * kernel time per iteration from `torch.profiler`, the DCN kernels'
-    share of it, and the device's busy share of the unprofiled wall time;
+    share of it (each DCN kernel apart: the forward, the backward's data
+    and weight kernels), and the device's busy share of the unprofiled
+    wall time;
   * the busiest kernels.
 Needs a CUDA device.
 """
@@ -79,16 +81,22 @@ def _wall_ms(fn, n):
     return ms
 
 
+def kernel_name(key: str) -> str:
+    """`(anonymous namespace)::dcn_fwd_kernel(float const*, ...)` ->
+    `dcn_fwd_kernel`"""
+    return key.replace("(anonymous namespace)::", "").split("(")[0]
+
+
 def _report(name, wall, kernel_ms, rows):
     p50 = float(np.median(wall))
-    dcn = {k: v for k, v in rows.items() if "dcn_" in k}
+    dcn = {kernel_name(k): v for k, v in rows.items() if "dcn_" in k}
     dcn_ms = sum(ms for ms, _ in dcn.values())
     print(f"{name}: wall p50 {p50:.2f} ms (min {min(wall):.2f}, max "
           f"{max(wall):.2f}); kernels {kernel_ms:.2f} ms, device busy "
           f"{100 * kernel_ms / p50:.1f}% of the wall time; DCN kernels "
           f"{dcn_ms:.2f} ms ({100 * dcn_ms / kernel_ms:.1f}% of the kernel "
-          "time): " + ", ".join(f"{k.split('(')[0]} {ms:.2f} ms x{c:g}"
-                                for k, (ms, c) in sorted(dcn.items())))
+          "time): " + ", ".join(f"{k} {ms:.2f} ms x{c:g} ({ms / c:.4f} ms "
+                                f"each)" for k, (ms, c) in sorted(dcn.items())))
     for k, (ms, c) in sorted(rows.items(), key=lambda r: -r[1][0])[:12]:
         print(f"  {ms:8.3f} ms  x{c:<5g} {k[:100]}")
 

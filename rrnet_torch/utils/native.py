@@ -5,7 +5,9 @@ plain C interface and loaded with ctypes. Libraries go to
 `build/rrnet_torch/` at the root of the checkout (git-ignored), named by
 a hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
 an edited source is rebuilt and an unchanged one is built once.
-`build_all` starts one `nvcc` per stale library, all at once.
+`build_all` starts one `nvcc` per stale library, all at once; it also
+builds another copy of the sources (an earlier commit's) into another
+directory, for a timing of the two side by side.
 """
 
 from __future__ import annotations
@@ -51,33 +53,35 @@ def _flags(name: str) -> List[str]:
     return NVCC_FLAGS + SOURCES[name][1]
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / SOURCES[name][0]).read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+def _target(name: str, csrc: Path, build_dir: Path) -> Path:
+    digest = hashlib.sha256((csrc / SOURCES[name][0]).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(_flags(name)).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names: Sequence[str] = tuple(SOURCES)) -> None:
-    """Build every library of `names` that is not current, one `nvcc`
-    process each, all started together; raises if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build_all(names: Sequence[str] = tuple(SOURCES), csrc: Path = CSRC,
+              build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
+    """Build every library of `names` (sources in `csrc`, libraries in
+    `build_dir`) that is not current, one `nvcc` process each, all started
+    together; raises if any build fails. Returns each library's path."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    targets = {name: _target(name, csrc, build_dir) for name in names}
     jobs = []
-    for name in names:
-        target = _target(name)
+    for name, target in targets.items():
         if target.exists():
             continue
         tmp = target.parent / f"{target.stem}.{os.getpid()}.tmp.so"
         cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
-               str(CSRC / SOURCES[name][0])]
+               str(csrc / SOURCES[name][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, target, tmp, proc))
     failed = []
     for name, target, tmp, proc in jobs:
         out = proc.communicate()[0]
-        (BUILD_DIR / f"{name}.log").write_text(out)
+        (build_dir / f"{name}.log").write_text(out)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"nvcc failed for {SOURCES[name][0]}:\n{out}")
@@ -85,6 +89,7 @@ def build_all(names: Sequence[str] = tuple(SOURCES)) -> None:
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return targets
 
 
 def build_log(name: str) -> List[str]:
@@ -98,7 +103,6 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if it is not current."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(build_all([name])[name]))
         _loaded[name] = lib
     return lib

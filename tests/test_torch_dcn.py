@@ -246,6 +246,70 @@ def test_wrapper_rejects_non_cuda_devices():
 
 
 # ---------------------------------------------------------------------------
+# numerics of the kernels' tensor-core route, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def tf32(a: torch.Tensor) -> torch.Tensor:
+    """`a` rounded to TF32 as `cvt.rna.tf32.f32` rounds: to 10 mantissa
+    bits, to nearest, ties away from zero (the float's bits are sign and
+    magnitude, so adding half of the dropped 13 bits rounds the magnitude
+    half up)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_rounding_emulation():
+    one = 1.0 + 2.0 ** -10                    # the TF32 neighbour of 1.0
+    a = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -23, 3.0, 0.0,
+                      1.0 + 3 * 2.0 ** -11], dtype=torch.float32)
+    want = [one, -one, 1.0, 3.0, 0.0, 1.0 + 2 * 2.0 ** -10]
+    assert tf32(a).tolist() == want
+    r = torch.from_numpy(np.random.RandomState(0).randn(1000)
+                         .astype(np.float32))
+    t = tf32(r)
+    assert ((t.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((t - r).abs() <= r.abs() * 2.0 ** -11).all()
+
+
+def test_3xtf32_split_keeps_the_kernel_tolerance_and_one_pass_does_not():
+    """The forward GEMM of the CUDA kernel at the train d2 shape (4 x 256 x
+    32 x 32, G = 4, 3x3, dilation 2), its products emulated exactly (in
+    f64) from TF32 operands: with the 3xTF32 split (hi = tf32(a), lo =
+    tf32(a - hi); lo*hi + hi*lo + hi*hi) it stays within the kernel's
+    2e-5 of the largest magnitude of the f32 plain version; one TF32
+    pass (hi*hi) does not."""
+    arrays, kw = make_case(b=4, h=32, w=32, cin=256, cout=256, g=4,
+                           dilation=2, seed=21)
+    x, wt, off, mask, _ = to_port(*arrays)
+    g = kw["deformable_groups"]
+    wmat = wt.reshape(256, g, 256 // g, K * K)
+    w_hi = tf32(wmat)
+    w_lo = tf32(wmat - w_hi)
+    err3 = err1 = scale = 0.0
+    for i in range(x.shape[0]):              # one image at a time
+        one = [a[i:i + 1] for a in (x, off, mask)]
+        ref = tdcn.deform_conv2d(one[0], wt, one[1], one[2], **kw)
+        s = tdcn.sampled_columns(one[0], one[1], one[2], K, K,
+                                 kw["stride"], kw["padding"],
+                                 kw["dilation"], g)
+        s_hi = tf32(s)
+        s_lo = tf32(s - s_hi)
+
+        def gemm(a, b_):
+            return torch.einsum("bgctp,ogct->bop", a.double(), b_.double())
+
+        hi_hi = gemm(s_hi, w_hi)
+        three = gemm(s_lo, w_hi) + gemm(s_hi, w_lo) + hi_hi
+        ref = ref.reshape(hi_hi.shape).double()
+        err3 = max(err3, float((three - ref).abs().max()))
+        err1 = max(err1, float((hi_hi - ref).abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+    assert err3 <= 2e-5 * scale, err3 / scale
+    assert err1 > 2e-5 * scale, err1 / scale
+
+
+# ---------------------------------------------------------------------------
 # on the card: kernels B.3 / B.4 against the plain version
 # ---------------------------------------------------------------------------
 
@@ -263,6 +327,21 @@ def path_case(name):
         "g1_stride2": dict(b=2, h=15, w=17, cin=24, cout=40, g=1, stride=2),
         "no_mask_odd_channels": dict(b=3, h=9, w=11, cin=40, cout=70, g=2,
                                      masked=False),
+        # tiles cut raggedly: positions not a multiple of the 32 of a
+        # tile, Cout not a multiple of 8 (nor of 4: the weight copies'
+        # 4-byte path), cpg not a multiple of 8 or of 4 (the scalar
+        # gather and grad x scatter), Cout across two forward blocks
+        "ragged_cout36_cpg32": dict(b=2, h=11, w=13, cin=64, cout=36, g=2),
+        "cpg12_cout12": dict(b=1, h=10, w=9, cin=36, cout=12, g=3,
+                             dilation=2),
+        "cpg6_cout20": dict(b=2, h=7, w=13, cin=18, cout=20, g=3),
+        "cpg5_cout9_no_mask": dict(b=2, h=6, w=7, cin=10, cout=9, g=2,
+                                   masked=False),
+        "cout300_stride2": dict(b=1, h=9, w=10, cin=16, cout=300, g=2,
+                                stride=2),
+        # grad weight summed over 32768 positions: each block of the
+        # weight kernel takes a run of ~140 units (64 positions each)
+        "long_runs_b32": dict(b=32, h=32, w=32, cin=256, cout=256),
     }
     arrays, kw = make_case(seed=11, **cases[name])
     return to_port(*arrays), kw
@@ -270,7 +349,9 @@ def path_case(name):
 
 PATH_CASES = ["serve_d1", "serve_d2", "serve_d3", "train_d2", "zero_offsets",
               "integer_offsets", "outside", "g1_stride2",
-              "no_mask_odd_channels"]
+              "no_mask_odd_channels", "ragged_cout36_cpg32", "cpg12_cout12",
+              "cpg6_cout20", "cpg5_cout9_no_mask", "cout300_stride2",
+              "long_runs_b32"]
 
 
 @pytest.fixture
@@ -320,6 +401,32 @@ def test_cuda_backward_matches_autograd_of_plain(cuda_device, case):
         if r is None:
             assert g is None
         else:
+            _close_cuda(g, r, 5e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_at_the_cout_limit_and_above(cuda_device):
+    """The backward kernel keeps a block's cotangent (32 positions x Cout)
+    in shared memory: Cout up to `max_cout()` runs and matches the plain
+    version, one more raises before any launch."""
+    limit = tdc.max_cout()
+    assert limit >= 512
+    for cout in (limit, limit + 1):
+        (x, wt, off, mask, ct), kw = _port_case(b=1, h=5, w=6, cin=8,
+                                                cout=cout, g=2, seed=13)
+        x, wt, off, mask, ct = (a.to(cuda_device)
+                                for a in (x, wt, off, mask, ct))
+        before = tdc.bwd_launches
+        if cout > limit:
+            with pytest.raises(ValueError):
+                tdc.deform_conv2d_backward(x, wt, off, mask, ct, **kw)
+            assert tdc.bwd_launches == before
+            continue
+        got = tdc.deform_conv2d_backward(x, wt, off, mask, ct, **kw)
+        torch.cuda.synchronize()
+        ref = tdc.deform_conv2d_backward_reference(x, wt, off, mask, ct,
+                                                   **kw)
+        for g, r in zip(got, ref):
             _close_cuda(g, r, 5e-5)
 
 
