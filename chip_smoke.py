@@ -4,43 +4,54 @@
     python3 chip_smoke.py [--before DIR]
 
 Phases (any failure exits non-zero before the result line):
-  1. device: the card's name and power limit from nvidia-smi;
+  1. device: the card's name and power limit from nvidia-smi, and
+     PyTorch's TF32 settings, which the run leaves at their defaults
+     (the port pins its f32 convolutions to f32 itself);
   2. build: every CUDA kernel of the port from `rrnet_torch/csrc/`, one
      `nvcc` per source, all started together; ptxas register and spill
      lines;
   3. kernels: each kernel against its plain PyTorch version on the card
      at its path's shapes, plus edge cases, and timed against its bound;
-     the class-parallel soft-NMS also against the serial kernel; the DCN
-     kernels against both bound routes (f32 on the CUDA cores, 3xTF32 on
-     the tensor cores), the backward's two kernels apart, and, with
-     `--before DIR`, beside another version of their sources built from
-     DIR (one "dcn before/after" line a path shape);
-  4. small-input reference: a tiny RRNet, a tiny RRNet train step and
-     trires50deform at 64x64, all f32, on the card against the same
-     models on the CPU (the path the CPU tests hold to the JAX package);
+     the class-parallel soft-NMS also against the serial kernel, with the
+     busiest class's chain length per image beside its time; hard NMS
+     against the plain fixpoint; the DCN kernels against both bound routes
+     (f32 on the CUDA cores, 3xTF32 on the tensor cores), the backward's
+     two kernels apart. `--before DIR` builds another version of the
+     sources that DIR holds (the DCN trio, `soft_nms_classes.cu`) and
+     times it beside this checkout's, in turns ("before/after" lines);
+  4. small-input reference: a tiny RRNet (hard NMS and soft-NMS), a tiny
+     RRNet train step and trires50deform at 64x64, all f32, on the card
+     against the same models on the CPU (the path the CPU tests hold to
+     the JAX package);
   5. main path: `rrnet_torch.serving.Predictor` on the flagship `rrnet`
-     preset with stage-1 soft-NMS (hourglass-104, 2 stacks, topk 1500,
-     512 ROIs, bf16, seeded random weights) answers single requests and
-     one batch inside the 768x1408 bucket; the kernel launch counts of
-     that run are read back, and one request's ROI selection is redone
-     with the plain soft-NMS;
-  6. trident path: `build_backbone("trires50deform")` (full width, f32,
-     TF32 off, seeded weights with nonzero offset/mask convs) serves eval
-     forwards at 1x3x768x1408 and takes train steps (batch statistics,
-     backward of a seeded loss) at 4x3x512x512; the DCN launch counts of
-     that run are read back (15 forward launches a forward, 15 backward
-     launches a step); l1..l4 and the running statistics are held to the
-     same model with the plain DCN, and every DCN-touching gradient to
-     the plain DCN's backward behind the kernels' forward (an all-plain
-     step's f32 gradients differ by the ReLUs and sample coordinates
-     that flip between two forwards; that comparison is printed);
+     preset at its defaults (stage-1 hard NMS; hourglass-104, 2 stacks,
+     topk 1500, 512 ROIs, bf16, seeded random weights) answers single
+     requests and one batch inside the 768x1408 bucket; then the same
+     model and weights with per-class soft-NMS (the class-parallel
+     kernel), then with class-agnostic soft-NMS (the serial kernel) for
+     four requests. For each setting the launch counts of its run are read
+     back, one request's ROI selection is redone with the plain version,
+     and `select_rois` runs once under `torch.cuda.set_sync_debug_mode(
+     "error")`;
+  6. trident path: `build_backbone("trires50deform")` (full width, f32 at
+     PyTorch's TF32 defaults, seeded weights with nonzero offset/mask
+     convs) serves eval forwards at 1x3x768x1408 and takes train steps
+     (batch statistics, backward of a seeded loss) at 4x3x512x512; the
+     DCN launch counts of that run are read back (15 forward launches a
+     forward, 15 backward launches a step); l1..l4 and the running
+     statistics are held to the same model with the plain DCN, and every
+     DCN-touching gradient to the plain DCN's backward behind the
+     kernels' forward (an all-plain step's f32 gradients differ by the
+     ReLUs and sample coordinates that flip between two forwards; that
+     comparison is printed);
   7. train path: `rrnet_torch.train.Trainer` on the flagship preset at
-     full width (bf16, stage-1 soft-NMS, stage 2 from step 0) takes 10
-     steps on one seeded batch of 4 uint8 512x512 crops (one soft-NMS
-     launch a forward, a falling total), then a batch of inf pixels that
-     must leave the whole state bitwise as it was; the class-parallel
-     soft-NMS on one step's own decoded candidates must select the ROIs
-     the serial kernel selected in that step.
+     full width at its defaults (bf16, stage-1 hard NMS; stage 2 from
+     step 0) takes 10 steps on one seeded batch of 4 uint8 512x512 crops
+     (one hard-NMS launch a forward, a falling total), then a batch of
+     inf pixels that must leave the whole state bitwise as it was; one
+     step's own decoded candidates are selected again by the plain
+     fixpoint (the step's ROIs), and by the class-parallel and the serial
+     soft-NMS kernels (the same ROIs).
 Each path runs with every launch count set to 0 just before it and read
 just after. Then one JSON line lists every kernel, and the last line is
 the result. It exits non-zero without a result when no CUDA device is
@@ -66,6 +77,10 @@ TF32_FLOPS_PER_S = 495e12       # tensor cores, TF32 inputs, f32 accumulate
 # divide, overlap tests), the gaussian weight (mul, div, exp), the decay
 # multiply and the threshold compare.
 SOFT_NMS_OPS_PER_SLOT_STEP = 22
+# f32 operations per box pair of hard NMS, counted as for soft-NMS: IoU
+# (min/max/sub/add on both axes, clamps, inter, union, clamp, divide),
+# the class compare and select, and the threshold compare.
+HARD_NMS_OPS_PER_PAIR = 18
 # f32 operations of DCNv2 beside its GEMMs. Per (position, tap, channel):
 # the forward's bilinear sample (4 mul, 3 add) and mask multiply; the
 # backward's recomputed sample (7), masked sample for grad weight (1),
@@ -195,37 +210,101 @@ def check_soft_nms(torch, sn, rng):
             "library_ms": None}
 
 
-def check_soft_nms_classes(torch, sn, rng, card):
+def classes_inputs(torch, rng):
+    """(cases, main args) of the class-parallel soft-NMS on the card: each
+    case (name, boxes, scores, valid, cls, settings)."""
+    boxes, scores, cls = detections_like(rng, 4, 1500, 10)
+    mask = rng.rand(4, 1500) > 0.2
+    big_b, big_s, big_c = detections_like(rng, 2, 4096, 10)
+    g = dict(method="gaussian", max_out=512)
+    cases = [
+        ("main B=4 K=1500 10 classes", boxes, scores, None, cls, g),
+        ("K=1", boxes[:, :1], scores[:, :1], None, cls[:, :1], g),
+        ("all invalid", boxes[:, :40], scores[:, :40],
+         np.zeros((4, 40), bool), cls[:, :40], g),
+        ("single class", boxes[:, :300], scores[:, :300], None,
+         np.full((4, 300), 4, np.int32), g),
+        ("single class K=1500 (6 warps)", boxes, scores, None,
+         np.full((4, 1500), 7, np.int32), g),
+        ("single class K=4096 (8 warps)", big_b, big_s, None,
+         np.full((2, 4096), 0, np.int32), g),
+        ("K=4096 10 classes", big_b, big_s, None, big_c, g),
+        ("equal scores", boxes[:1, :300], np.full((1, 300), .5, np.float32),
+         None, cls[:1, :300], g),
+        ("max_out above survivors", boxes[:, :200], scores[:, :200], None,
+         cls[:, :200], dict(g, max_out=4000)),
+        ("linear", boxes, scores, mask, cls, dict(g, method="linear")),
+        ("hard", boxes, scores, mask, cls, dict(g, method="hard")),
+        ("valid mask", boxes, scores, mask, cls, g),
+        # long chains: weights near 1, few boxes dropped; the overlap skip
+        # carries most slots of most steps
+        ("sigma 2.0 (the skip, long chains)", boxes, scores, None, cls,
+         dict(g, sigma=2.0)),
+        # a zero overlap no longer gives weight 1: no skip, every open
+        # slot takes the full arithmetic. Weights above 1 raise scores, so
+        # a class's picks no longer fall in score and the serial kernel's
+        # first max_out picks are not the top max_out by score: only the
+        # plain version holds the kernel here
+        ("sigma -0.5 (no skip)", boxes[:, :600], scores[:, :600], None,
+         cls[:, :600], dict(g, sigma=-0.5)),
+    ]
+    return cases, (boxes, scores, None, cls)
+
+
+def before_soft_nms_classes(torch, src):
+    """The class-parallel soft-NMS built from another version of
+    `soft_nms_classes.cu` in `src` (e.g. the parent commit's) into
+    src/build, taking the arguments of `soft_nms_classes` and doing the
+    same work around the launch (the C interface is the same), so that the
+    two versions are timed on equal terms. It counts no launch."""
+    import ctypes
+    from pathlib import Path
+    from rrnet_torch.ops.nms import _METHODS
+    from rrnet_torch.utils import native
+    src = Path(src)
+    lib = native.build_all(("soft_nms_classes",), src, src / "build")
+    fn = ctypes.CDLL(str(lib["soft_nms_classes"])).rrnet_soft_nms_classes
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+
+    def run(boxes, scores, valid, cls, *, num_classes, sigma=0.5,
+            iou_threshold=0.3, score_threshold=0.001, method="gaussian",
+            max_out=None):
+        bsz, k = scores.shape
+        steps = k if max_out is None else min(max_out, k)
+        dev = boxes.device
+        out = (torch.empty((bsz, k), dtype=torch.float32, device=dev),
+               torch.empty((bsz, k), dtype=torch.bool, device=dev),
+               torch.empty((bsz, k), dtype=torch.int32, device=dev))
+        err = fn(boxes.data_ptr(), scores.data_ptr(),
+                 None if valid is None else valid.data_ptr(),
+                 cls.data_ptr(), *(o.data_ptr() for o in out), bsz, k,
+                 num_classes, steps, _METHODS[method], sigma, iou_threshold,
+                 score_threshold, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{src}: soft_nms_classes launch failed: "
+                               f"{err}")
+        return out
+
+    return run
+
+
+def check_soft_nms_classes(torch, sn, rng, card, before=None):
     """Kernel B.2 against its plain version (bit for bit) and against the
     serial kernel B.1 (keep, rank and kept scores equal) on the card, at
     the stage-1 candidate shape and edge cases; timed beside its plain
-    version and B.1 on the same inputs. Returns the kernel's line."""
+    version and B.1 on the same inputs, with the busiest class's chain
+    length per image. `before`, another build (`before_soft_nms_classes`),
+    is timed on the same inputs in turns (before, after, after, before).
+    Returns the kernel's line."""
     dev = torch.device("cuda")
     kw = dict(sigma=0.5, iou_threshold=0.7, score_threshold=0.1)
-    boxes, scores, cls = detections_like(rng, 4, 1500, 10)
-    mask = rng.rand(4, 1500) > 0.2
     t = (lambda a: None if a is None else
          torch.from_numpy(np.ascontiguousarray(a)).to(dev))
-    cases = [
-        ("main B=4 K=1500 10 classes", boxes, scores, None, cls, 512,
-         "gaussian"),
-        ("K=1", boxes[:, :1], scores[:, :1], None, cls[:, :1], 512,
-         "gaussian"),
-        ("all invalid", boxes[:, :40], scores[:, :40],
-         np.zeros((4, 40), bool), cls[:, :40], 512, "gaussian"),
-        ("single class", boxes[:, :300], scores[:, :300], None,
-         np.full((4, 300), 4, np.int32), 512, "gaussian"),
-        ("equal scores", boxes[:1, :300], np.full((1, 300), .5, np.float32),
-         None, cls[:1, :300], 512, "gaussian"),
-        ("max_out above survivors", boxes[:, :200], scores[:, :200], None,
-         cls[:, :200], 4000, "gaussian"),
-        ("linear", boxes, scores, mask, cls, 512, "linear"),
-        ("hard", boxes, scores, mask, cls, 512, "hard"),
-        ("valid mask", boxes, scores, mask, cls, 512, "gaussian"),
-    ]
-    for name, b, s, v, c, max_out, method in cases:
+    cases, main = classes_inputs(torch, rng)
+    for name, b, s, v, c, settings in cases:
         args = (t(b), t(s), t(v), t(c))
-        ckw = dict(kw, max_out=max_out, method=method)
+        ckw = dict(kw, **settings)
         got = sn.soft_nms_classes(*args, num_classes=10, **ckw)
         torch.cuda.synchronize()
         ref = sn.soft_nms_classes_reference(*args, num_classes=10, **ckw)
@@ -235,42 +314,165 @@ def check_soft_nms_classes(torch, sn, rng, card):
             raise AssertionError(f"soft_nms_classes kernel differs from its "
                                  f"plain version ({name})")
         k = got[1]
-        if not (torch.equal(k, ser[1]) and torch.equal(got[2], ser[2])
-                and torch.equal(got[0][k], ser[0][k])):
+        contract = ckw["method"] != "gaussian" or ckw["sigma"] > 0
+        if contract and not (torch.equal(k, ser[1])
+                             and torch.equal(got[2], ser[2])
+                             and torch.equal(got[0][k], ser[0][k])):
             raise AssertionError(f"soft_nms_classes kernel breaks the "
                                  f"serial kernel's contract ({name})")
         print(f"  soft_nms_classes {name}: new_scores, keep, rank bit-equal "
-              f"to the plain version; keep {int(k.sum())}, kept ranks and "
-              "scores equal to soft_nms", flush=True)
+              f"to the plain version; keep {int(k.sum())}"
+              + (", kept ranks and scores equal to soft_nms" if contract
+                 else " (weights above 1: no serial contract)"), flush=True)
 
-    args = (t(boxes), t(scores), None, t(cls))
+    args = tuple(t(a) for a in main)
     ckw = dict(kw, max_out=512, method="gaussian")
-    ms = cuda_ms(lambda: sn.soft_nms_classes(*args, num_classes=10, **ckw),
-                 reps=50)
+    if before is not None:
+        old = before(*args, num_classes=10, **ckw)
+        new = sn.soft_nms_classes(*args, num_classes=10, **ckw)
+        if not all(torch.equal(a, b) for a, b in zip(old, new)):
+            raise AssertionError("soft_nms_classes: the --before build "
+                                 "differs from this one")
+    versions = {"after": lambda: sn.soft_nms_classes(*args, num_classes=10,
+                                                     **ckw)}
+    if before is not None:
+        versions["before"] = lambda: before(*args, num_classes=10, **ckw)
+    order = ["before", "after", "after", "before"] if before else ["after"]
+    times = {v: [] for v in versions}
+    for v in order:
+        times[v].append(cuda_ms(versions[v], reps=50))
+    ms = {v: float(np.mean(x)) for v, x in times.items()}
+    split = {v: device_split(torch, f, reps=20)
+             for v, f in versions.items()}
+    device = {v: sum(d.values()) for v, d in split.items()}
     serial_ms = cuda_ms(lambda: sn.soft_nms(*args, **ckw), reps=50)
     plain_ms = cuda_ms(lambda: sn.soft_nms_classes_reference(
         *args, num_classes=10, **ckw), reps=3, warm=1)
     # the work these inputs need: each class's steps touch its open slots
     work = sn.soft_nms_classes_reference(*args, num_classes=10,
                                          return_work=True, **ckw)[3]
-    bsz, kk = scores.shape
+    # chain: each class runs to exhaustion, one selection a step
+    sel = sn.soft_nms_classes_reference(*args, num_classes=10,
+                                        **dict(ckw, max_out=None))[1]
+    cls = args[3].long()
+    chains = [int(torch.bincount(cls[i][sel[i]], minlength=10).max())
+              for i in range(cls.shape[0])]
+    bsz, kk = main[1].shape
     ops = float(work.sum()) * SOFT_NMS_OPS_PER_SLOT_STEP
     nbytes = bsz * kk * ((16 + 4 + 4) + (4 + 1 + 4))
     bound_ops = ops / F32_FLOPS_PER_S * 1e3
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in
+                      sorted(split["after"].items()))
     print(f"  soft_nms_classes timing at B=4 K=1500 on {card}: kernel "
-          f"{ms:.4f} ms, serial kernel soft_nms on the same inputs "
+          f"{ms['after']:.4f} ms a call (device {device['after']:.4f} ms: "
+          f"{parts}), serial kernel soft_nms on the same inputs "
           f"{serial_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
           f"{max(bound_ops, bound_bytes):.6f} ms (open slot-steps per image "
-          f"{work.tolist()}, {ops:.0f} ops, {nbytes} bytes); no PyTorch "
-          "call computes soft-NMS, so library_ms is null", flush=True)
-    return {"name": "soft_nms_classes", "route": "cuda",
+          f"{work.tolist()}, {ops:.0f} ops, {nbytes} bytes); busiest "
+          f"class's chain per image {chains}: device "
+          f"{device['after'] / max(chains) * 1e3:.3f} us a step of the "
+          "longest; no PyTorch call computes soft-NMS, so library_ms is "
+          "null", flush=True)
+    if before is not None:
+        print(f"  soft_nms_classes before/after at B=4 K=1500 on {card}: "
+              f"{ms['before']:.4f} -> {ms['after']:.4f} ms a call "
+              f"({ms['before'] / ms['after']:.2f}x); device "
+              f"{device['before']:.4f} -> {device['after']:.4f} ms "
+              f"({device['before'] / device['after']:.2f}x); chains "
+              f"{chains}, longest {max(chains)}: "
+              f"{device['before'] / max(chains) * 1e3:.3f} -> "
+              f"{device['after'] / max(chains) * 1e3:.3f} us a step "
+              f"(each the mean of two timings, before, after, after, before)",
+              flush=True)
+    line = {"name": "soft_nms_classes", "route": "cuda",
             "source": "rrnet_torch/csrc/soft_nms_classes.cu",
             "replaces": "rrnet_tpu/ops/pallas_nms.py:250",
+            "launches": None, "max_abs_err": 0.0, "ms": ms["after"],
+            "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "library_ms": None, "device_ms": device["after"],
+            "chain_per_image": chains,
+            "serial_kernel_ms_same_inputs": serial_ms}
+    if before is not None:
+        line.update(before_ms=ms["before"], before_device_ms=device["before"])
+    return line
+
+
+def check_hard_nms(torch, hn, rng, card):
+    """Hard NMS against the plain fixpoint on the card (keep bit-equal) at
+    the stage-1 candidate shape, per class and class-agnostic, and edge
+    cases; timed beside the plain fixpoint and against its bound. Returns
+    the kernel's line."""
+    dev = torch.device("cuda")
+    t = (lambda a: None if a is None else
+         torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+    boxes, scores, cls = detections_like(rng, 4, 1500, 10)
+    mask = rng.rand(4, 1500) > 0.2
+    big_b, big_s, big_c = detections_like(rng, 2, 4096, 10)
+    n = 48          # each box 2 px right of the last: IoU 0.667, then 0.43
+    x = 2.0 * np.arange(n, dtype=np.float32)
+    chain = np.stack([x, np.zeros(n), x + 10, np.full(n, 10.0)],
+                     -1)[None].astype(np.float32)
+    ident = np.tile(np.array([[[10, 10, 20, 20]]], np.float32), (1, 64, 1))
+    cases = [
+        ("main B=4 K=1500 per-class", boxes, scores, None, cls, 0.7, False),
+        ("main B=4 K=1500 class-agnostic", boxes, scores, None, None, 0.7,
+         False),
+        ("K=1", boxes[:, :1], scores[:, :1], None, cls[:, :1], 0.7, False),
+        ("all invalid", boxes[:, :40], scores[:, :40],
+         np.zeros((4, 40), bool), cls[:, :40], 0.7, False),
+        ("identical boxes", ident, np.full((1, 64), .3, np.float32), None,
+         None, 0.7, False),
+        ("equal scores", boxes[:1, :300], np.full((1, 300), .5, np.float32),
+         None, cls[:1, :300], 0.7, False),
+        ("valid mask", boxes, scores, mask, cls, 0.7, False),
+        ("plus_one", boxes, scores, mask, None, 0.5, True),
+        ("a chain of 48, each suppressing the next", chain,
+         np.linspace(1, .1, n, dtype=np.float32)[None], None, None, 0.5,
+         False),
+        ("K=4096", big_b, big_s, None, big_c, 0.5, False),
+    ]
+    for name, b, s, v, c, thr, plus_one in cases:
+        args = (t(b), t(s), thr, t(v), t(c))
+        got = hn.hard_nms(*args, plus_one=plus_one)
+        torch.cuda.synchronize()
+        ref = hn.hard_nms_reference(*args, plus_one=plus_one)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"hard_nms kernel differs from the plain "
+                                 f"fixpoint ({name}): "
+                                 f"{int((got != ref).sum())} boxes")
+        print(f"  hard_nms {name}: keep bit-equal to the plain fixpoint "
+              f"({int(got.sum())} kept of {got.numel()})", flush=True)
+
+    args = (t(boxes), t(scores), 0.7, None, t(cls))
+    ms = cuda_ms(lambda: hn.hard_nms(*args), reps=50)
+    split = device_split(torch, lambda: hn.hard_nms(*args), reps=20)
+    kernels = sum(v for k, v in split.items() if "hard_nms_" in k)
+    plain_ms = cuda_ms(lambda: hn.hard_nms_reference(*args), reps=3, warm=1)
+    bsz, kk = scores.shape
+    ops = bsz * kk * (kk - 1) / 2 * HARD_NMS_OPS_PER_PAIR
+    nbytes = bsz * kk * ((16 + 4 + 4) + 1)
+    bound_ops = ops / F32_FLOPS_PER_S * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  hard_nms timing at B=4 K=1500 per class on {card}: wrapper "
+          f"{ms:.4f} ms a call (device {sum(split.values()):.4f} ms: the "
+          f"mask and scan kernels {kernels:.4f}, the score sort and the rest "
+          f"{sum(split.values()) - kernels:.4f}), plain fixpoint "
+          f"{plain_ms:.3f} ms, bound {max(bound_ops, bound_bytes):.6f} ms "
+          f"({ops:.4g} ops over {bsz * kk * (kk - 1) // 2} pairs, {nbytes} "
+          "bytes); no PyTorch call computes NMS (torchvision is not "
+          "installed), so library_ms is null; " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(split.items())), flush=True)
+    return {"name": "hard_nms", "route": "cuda",
+            "source": "rrnet_torch/csrc/hard_nms.cu",
+            "replaces": "rrnet_tpu/ops/nms.py:46 (not a TPU kernel: the "
+                        "XLA hard-NMS fixpoint)",
             "launches": None, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-            "library_ms": None, "serial_kernel_ms_same_inputs": serial_ms}
+            "library_ms": None, "device_ms": sum(split.values()),
+            "kernels_device_ms": kernels}
 
 
 def dcn_inputs(torch, rng, b, h, w, cin=256, cout=256, g=4, stride=1,
@@ -397,9 +599,9 @@ def before_dcn(torch, src):
     return forward, backward
 
 
-def profile_split(torch, fn, reps=5):
-    """{kernel name: ms per launch} of `fn`'s DCN kernels, by
-    torch.profiler over `reps` calls after one warm-up."""
+def device_split(torch, fn, reps=5):
+    """{kernel name: device ms per call of `fn`}, by torch.profiler over
+    `reps` calls after one warm-up."""
     from rrnet_torch.profile_trident import kernel_name
     fn()
     torch.cuda.synchronize()
@@ -409,12 +611,20 @@ def profile_split(torch, fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    # each call launches each kernel once: per launch is per call
-    return {kernel_name(e.key):
-            e.self_device_time_total / 1e3 / max(e.count, 1)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "dcn_" in e.key}
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = kernel_name(e.key)
+            out[name] = (out.get(name, 0.0)
+                         + e.self_device_time_total / 1e3 / reps)
+    return out
+
+
+def profile_split(torch, fn, reps=5):
+    """{kernel name: ms per call} of `fn`'s DCN kernels (each launches
+    once a call)."""
+    return {k: v for k, v in device_split(torch, fn, reps).items()
+            if "dcn_" in k}
 
 
 def check_dcn(torch, rng, card, before=None):
@@ -428,6 +638,7 @@ def check_dcn(torch, rng, card, before=None):
     (before, after, after, before) and printed beside them, one line a
     shape. Returns the two kernels' lines."""
     import torch.nn.functional as F
+    from rrnet_torch.models.layers import cudnn_f32
     from rrnet_torch.ops import dcn
     from rrnet_torch.ops import deform_conv as tdc
 
@@ -494,18 +705,20 @@ def check_dcn(torch, rng, card, before=None):
         with torch.no_grad():
             plain_fwd = cuda_ms(lambda: dcn.deform_conv2d(
                 x, wt, off, mask, None, **kw), reps=5)
-            conv_fwd = cuda_ms(lambda: F.conv2d(
-                x, wt, None, 1, kw["padding"], kw["dilation"]), reps=20)
+            with cudnn_f32():
+                conv_fwd = cuda_ms(lambda: F.conv2d(
+                    x, wt, None, 1, kw["padding"], kw["dilation"]), reps=20)
         leaves = [a.detach().requires_grad_() for a in (x, wt, off, mask)]
         with torch.enable_grad():
             graph = dcn.deform_conv2d(*leaves, None, **kw)
         plain_bwd = cuda_ms(lambda: torch.autograd.grad(
             graph, leaves, ct, retain_graph=True), reps=5)
         del graph
-        conv_bwd = cuda_ms(lambda: torch.ops.aten.convolution_backward(
-            ct, x, wt, None, [1, 1], [kw["padding"]] * 2,
-            [kw["dilation"]] * 2, False, [0, 0], 1, [True, True, False]),
-            reps=20)
+        with cudnn_f32():
+            conv_bwd = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                ct, x, wt, None, [1, 1], [kw["padding"]] * 2,
+                [kw["dilation"]] * 2, False, [0, 0], 1, [True, True, False]),
+                reps=20)
         versions = {"after": (fwd, bwd)}
         if before is not None:
             versions["before"] = (lambda: fwd(before[0]),
@@ -584,47 +797,52 @@ def check_dcn(torch, rng, card, before=None):
 
 
 def check_small_reference(torch):
-    """Tiny RRNet, f32: the card against the CPU on the same weights."""
+    """Tiny RRNet, f32, with stage-1 hard NMS (the default) and with
+    soft-NMS: the card against the CPU on the same weights."""
     from rrnet_torch import config
     from rrnet_torch.models import build_model
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = config.rrnet_config(**{
-        "model.backbone": "tiny_hourglass", "model.topk": 256,
-        "model.stage2_rois": 64, "model.dtype": "float32",
-        "model.nms_type_for_stage1": "soft_nms"})
-    cpu = build_model(cfg, device="cpu",
-                      generator=torch.Generator().manual_seed(1))
-    with torch.no_grad():         # spread the logits: no near-ties
-        for i in range(2):
-            getattr(cpu.hm, f"out{i}").weight.mul_(40.0)
-    gpu = build_model(cfg, device="cuda")
-    gpu.load_state_dict(cpu.state_dict())
-    x = torch.from_numpy(np.random.RandomState(2).randn(2, 3, 128, 160)
-                         .astype(np.float32))
-    vhw = torch.tensor([[128, 160], [100, 120]], dtype=torch.int32)
-    with torch.inference_mode():
-        a = cpu(x, valid_hw=vhw)
-        b = gpu(x.cuda(), valid_hw=vhw.cuda())
-    for name in ("roi_valid", "roi_classes"):
-        if not torch.equal(getattr(a, name), getattr(b, name).cpu()):
-            raise AssertionError(f"tiny f32 RRNet: {name} differ cuda vs cpu")
-    torch.testing.assert_close(b.rois.cpu(), a.rois, atol=1e-3, rtol=0)
-    torch.testing.assert_close(b.hms[-1].cpu(), a.hms[-1], atol=1e-4,
-                               rtol=1e-4)
-    torch.testing.assert_close(b.stage2_reg.cpu(), a.stage2_reg, atol=1e-4,
-                               rtol=1e-4)
-    print(f"  tiny RRNet f32 cuda == cpu: {int(a.roi_valid.sum())} ROIs, "
-          "classes/validity equal, boxes within 1e-3, heads within 1e-4",
-          flush=True)
+    for nms_type in ("nms", "soft_nms"):
+        cfg = config.rrnet_config(**{
+            "model.backbone": "tiny_hourglass", "model.topk": 256,
+            "model.stage2_rois": 64, "model.dtype": "float32",
+            "model.nms_type_for_stage1": nms_type})
+        cpu = build_model(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():         # spread the logits: no near-ties
+            for i in range(2):
+                getattr(cpu.hm, f"out{i}").weight.mul_(40.0)
+        gpu = build_model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(np.random.RandomState(2).randn(2, 3, 128, 160)
+                             .astype(np.float32))
+        vhw = torch.tensor([[128, 160], [100, 120]], dtype=torch.int32)
+        with torch.inference_mode():
+            a = cpu(x, valid_hw=vhw)
+            b = gpu(x.cuda(), valid_hw=vhw.cuda())
+        for name in ("roi_valid", "roi_classes"):
+            if not torch.equal(getattr(a, name), getattr(b, name).cpu()):
+                raise AssertionError(f"tiny f32 RRNet ({nms_type}): {name} "
+                                     "differ cuda vs cpu")
+        torch.testing.assert_close(b.rois.cpu(), a.rois, atol=1e-3, rtol=0)
+        torch.testing.assert_close(b.hms[-1].cpu(), a.hms[-1], atol=1e-4,
+                                   rtol=1e-4)
+        torch.testing.assert_close(b.stage2_reg.cpu(), a.stage2_reg,
+                                   atol=1e-4, rtol=1e-4)
+        print(f"  tiny RRNet f32 ({nms_type}) cuda == cpu: "
+              f"{int(a.roi_valid.sum())} ROIs, classes/validity equal, boxes "
+              "within 1e-3, heads within 1e-4", flush=True)
 
 
 def check_small_train(torch):
-    """One tiny RRNet train step (tiny_hourglass, f32, TF32 off, batch
-    2x3x64x64) on the card against the same step on the CPU from the same
-    state: losses within 1e-4, the same ROI selection, every gradient
+    """One tiny RRNet train step (tiny_hourglass, f32, stage-1 soft-NMS,
+    batch 2x3x64x64) on the card against the same step on the CPU from the
+    same state: losses within 1e-4, the same ROI selection, every gradient
     within 1e-3 of its largest magnitude (the backward's scatter-adds run
-    by atomics in another order)."""
+    by atomics in another order). Soft-NMS: with the preset's hard NMS
+    this seed selects the same ROIs on both, but its stage-2 and wh
+    gradients land up to 0.9% apart (an ill-conditioned point of this
+    tiny step); hard NMS is held card against CPU by the tiny forward and
+    trained at full width in the train path."""
     from rrnet_torch import config
     from rrnet_torch.profile_train import synthetic_batch
     from rrnet_torch.train import Trainer
@@ -724,7 +942,14 @@ def check_detections(dets, max_rows, n_cls):
         raise AssertionError("scores not non-increasing and non-negative")
 
 
-def run_main_path(torch, sn, card):
+def run_main_path(torch, sn, hn, card):
+    """Phase 5: the flagship preset served through `Predictor` at its
+    defaults (hard NMS), then on the same model and weights with per-class
+    soft-NMS and with class-agnostic soft-NMS. Each setting runs with every
+    launch count set to 0 just before it and read just after; one
+    request's ROI selection is redone with the plain version of the NMS it
+    took, and `select_rois` runs once more under the CUDA sync debug mode
+    "error". Returns {setting: launch counts}."""
     from rrnet_torch import config
     from rrnet_torch.models import build_model
     from rrnet_torch.models.rrnet import mask_heatmap_extent
@@ -732,7 +957,9 @@ def run_main_path(torch, sn, card):
     from rrnet_torch.ops.heatmap import topk_decode, topk_desc
     from rrnet_torch.serving import Predictor
 
-    cfg = config.rrnet_config(**{"model.nms_type_for_stage1": "soft_nms"})
+    cfg = config.rrnet_config()
+    if cfg.model.nms_type_for_stage1 != "nms":
+        raise AssertionError("the preset's stage-1 NMS is no longer hard NMS")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator().manual_seed(cfg.seed))
@@ -741,89 +968,153 @@ def run_main_path(torch, sn, card):
     pred = Predictor(cfg, model, device="cuda")
 
     forwards = []
-
-    def hook(module, args, kwargs, out):
-        forwards.append((out, kwargs.get("valid_hw")))
-
-    handle = model.register_forward_hook(hook, with_kwargs=True)
+    model.register_forward_hook(
+        lambda module, args, kwargs, out: forwards.append(
+            (out, kwargs.get("valid_hw"))), with_kwargs=True)
     rng = np.random.RandomState(cfg.seed)
     sizes = [(765, 1360), (700, 1300), (768, 1408), (641, 1281),
              (720, 1350), (750, 1400), (690, 1290), (760, 1380)]
     images = [(rng.rand(h, w, 3) * 255).astype(np.uint8) for h, w in sizes]
 
-    sn.launches = sn.classes_launches = 0         # every count to 0
-    tdc.fwd_launches = tdc.bwd_launches = 0
-    pred.warmup(((765, 1360),), batch_sizes=(1, 4))
-    # single requests, twice over the same sizes: the first pass meets
-    # each size for the first time. The Predictor's window then holds
-    # single requests only; the batch goes on its own clock.
-    passes = [[], []]
-    outs = []
-    for ms_list in passes:
-        for im in images:
+    def serve(n_images, passes, batch, warmup):
+        forwards.clear()
+        hn.launches = sn.launches = sn.classes_launches = 0    # every count
+        tdc.fwd_launches = tdc.bwd_launches = 0                # to 0
+        if warmup:
+            pred.warmup(((765, 1360),), batch_sizes=(1, 4))
+        n_warm = len(forwards)
+        # single requests, `passes` times over the same sizes: the first
+        # pass meets each size for the first time; the batch on its own
+        # clock
+        times = [[] for _ in range(passes)]
+        outs = []
+        for ms_list in times:
+            for im in images[:n_images]:
+                t0 = time.perf_counter()
+                outs.append(pred.predict(im))
+                ms_list.append((time.perf_counter() - t0) * 1e3)
+        batch_ms = None
+        if batch:
             t0 = time.perf_counter()
-            outs.append(pred.predict(im))
-            ms_list.append((time.perf_counter() - t0) * 1e3)
-    stats = pred.latency_stats()
-    t0 = time.perf_counter()
-    batch = pred.predict_batch(images[:4])
-    batch_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    launches = sn.launches                        # read just after
-    others = tdc.fwd_launches + tdc.bwd_launches + sn.classes_launches
-    handle.remove()
+            outs += pred.predict_batch(images[:4])
+            batch_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        counts = {"hard_nms": hn.launches, "soft_nms": sn.launches,
+                  "soft_nms_classes": sn.classes_launches,
+                  "dcn": tdc.fwd_launches + tdc.bwd_launches}  # just after
+        for d in outs:
+            check_detections(d, cfg.model.stage2_rois, cfg.num_classes)
+        return times, batch_ms, counts, n_warm
 
-    n_fwd = 2 + 2 * len(images) + 1
-    if others:
-        raise AssertionError(f"the RRNet serving path launched the DCN or "
-                             f"class-parallel soft-NMS kernels {others} "
-                             "times")
-    if launches != len(forwards) or len(forwards) != n_fwd:
-        raise AssertionError(f"soft_nms launches {launches} for "
-                             f"{len(forwards)} forwards (want 1 each)")
-    for d in outs + batch:
-        check_detections(d, cfg.model.stage2_rois, cfg.num_classes)
+    def redo(select, name):
+        """Request sizes[3]'s ROI selection again from its own heads, with
+        `select(dets) -> masked scores`: the same ROIs, classes and
+        validity, and scores within rtol 1e-5 (the plain serial soft-NMS
+        may divide by sigma as a multiply by its reciprocal; hard NMS
+        passes the scores through, equal); then `select_rois` on the same
+        candidates under the sync debug mode "error"."""
+        out, vhw = forwards[n_warm + 3]
+        with torch.inference_mode():
+            hm = mask_heatmap_extent(out.hms[-1].float(), vhw, 4)
+            dets = topk_decode(hm, out.whs[-1].float(),
+                               out.offsets[-1].float(), k=model.topk)
+            top, idx = topk_desc(select(dets), model.stage2_rois)
+            valid = top > -torch.inf
+            rois = torch.gather(dets.boxes, 1,
+                                idx[..., None].expand(-1, -1, 4))
+            if not (torch.equal(valid, out.roi_valid)
+                    and torch.equal(rois, out.rois)
+                    and torch.equal(torch.gather(dets.classes, 1, idx),
+                                    out.roi_classes)):
+                raise AssertionError(f"main-path ROI selection differs from "
+                                     f"the plain {name}")
+            torch.testing.assert_close(torch.where(valid, top, 0.0),
+                                       out.roi_scores, rtol=1e-5, atol=0)
+            args = (dets.boxes.contiguous(), dets.scores.contiguous(),
+                    dets.classes.contiguous())
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again = model.select_rois(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if not torch.equal(again[0], out.rois):
+                raise AssertionError("select_rois under the sync debug mode "
+                                     "differs")
+        return int(out.roi_valid.sum())
 
-    # one request's ROI selection again, with the plain soft-NMS
-    out, vhw = forwards[5]                        # request sizes[3]
-    m = model                                     # its stage-1 settings
-    with torch.inference_mode():
-        hm = mask_heatmap_extent(out.hms[-1].float(), vhw, 4)
-        dets = topk_decode(hm, out.whs[-1].float(), out.offsets[-1].float(),
-                           k=m.topk)
-        ns, keep, _ = sn.soft_nms_reference(
-            dets.boxes, dets.scores, None, dets.classes,
-            sigma=m.soft_nms_sigma, iou_threshold=m.nms_iou,
-            score_threshold=m.soft_nms_score_threshold, method="gaussian",
-            max_out=m.stage2_rois)
-        top, idx = topk_desc(torch.where(keep, ns, -torch.inf), m.stage2_rois)
-        valid = top > -torch.inf
-        rois = torch.gather(dets.boxes, 1, idx[..., None].expand(-1, -1, 4))
-        if not (torch.equal(valid, out.roi_valid)
-                and torch.equal(rois, out.rois)
-                and torch.equal(torch.gather(dets.classes, 1, idx),
-                                out.roi_classes)):
-            raise AssertionError("main-path ROI selection differs from the "
-                                 "plain soft-NMS")
-        torch.testing.assert_close(torch.where(valid, top, 0.0),
-                                   out.roi_scores, rtol=1e-5, atol=0)
-    rows = [len(d) for d in outs[len(images):]]
-    print(f"  served {len(outs)} single requests + 1 batch of 4 "
-          f"({len(forwards)} forwards incl. warmup): rows per image {rows}; "
-          f"request {sizes[3]} ROI selection == plain soft-NMS "
-          f"({int(out.roi_valid.sum())} ROIs)", flush=True)
-    p1, p2 = (np.percentile(p, [50, 90]) for p in passes)
-    print(f"  single-request latency on {card}: Predictor window of "
-          f"{stats['count']} requests p50 {stats['p50_s'] * 1e3:.2f} ms, "
-          f"p90 {stats['p90_s'] * 1e3:.2f} ms; first pass p50 {p1[0]:.2f} "
-          f"p90 {p1[1]:.2f} ms, second pass p50 {p2[0]:.2f} p90 {p2[1]:.2f} "
-          f"ms; per request {[round(x, 2) for x in passes[0] + passes[1]]}",
-          flush=True)
-    print(f"  predict_batch of 4 on {card}: {batch_ms:.2f} ms", flush=True)
-    return launches
+    def report(setting, times, batch_ms, counts, n_rois, name):
+        flat = [x for p in times for x in p]
+        p50, p90 = np.percentile(flat, [50, 90])
+        print(f"  {setting}: {len(forwards)} forwards ({n_warm} warm-up), "
+              f"launches {counts}; request {sizes[3]} ROI selection == the "
+              f"plain {name} ({n_rois} ROIs); select_rois ran under the "
+              "sync debug mode \"error\"", flush=True)
+        print(f"  {setting} single-request latency on {card}: p50 "
+              f"{p50:.2f} ms, p90 {p90:.2f} ms over {len(flat)} requests"
+              + "".join(f"; pass {i + 1} p50 {np.percentile(p, 50):.2f} p90 "
+                        f"{np.percentile(p, 90):.2f}"
+                        for i, p in enumerate(times))
+              + f"; per request {[round(x, 2) for x in flat]}"
+              + (f"; predict_batch of 4 {batch_ms:.2f} ms" if batch_ms
+                 else ""), flush=True)
+
+    m = model
+    results = {}
+    # 1. the preset's defaults: per-class hard NMS
+    times, batch_ms, counts, n_warm = serve(len(images), 2, True, True)
+    want = {"hard_nms": len(forwards), "soft_nms": 0, "soft_nms_classes": 0,
+            "dcn": 0}
+    if counts != want or len(forwards) != 2 + 2 * len(images) + 1:
+        raise AssertionError(f"defaults: launches {counts} in "
+                             f"{len(forwards)} forwards (want {want})")
+    n_rois = redo(lambda d: torch.where(hn.hard_nms_reference(
+        d.boxes, d.scores, m.nms_iou, None, d.classes), d.scores,
+        -torch.inf), "hard-NMS fixpoint")
+    report("defaults (hard NMS)", times, batch_ms, counts, n_rois,
+           "hard-NMS fixpoint")
+    results["defaults"] = counts
+
+    def plain_soft(per_class):
+        def select(d):
+            ns, keep, _ = sn.soft_nms_reference(
+                d.boxes, d.scores, None, d.classes if per_class else None,
+                sigma=m.soft_nms_sigma, iou_threshold=m.nms_iou,
+                score_threshold=m.soft_nms_score_threshold,
+                method="gaussian", max_out=m.stage2_rois)
+            return torch.where(keep, ns, -torch.inf)
+        return select
+
+    # 2. per-class soft-NMS: the class-parallel kernel, never the serial one
+    m.nms_type = "soft_nms"
+    times, batch_ms, counts, n_warm = serve(len(images), 2, True, False)
+    want = {"hard_nms": 0, "soft_nms": 0,
+            "soft_nms_classes": len(forwards), "dcn": 0}
+    if counts != want:
+        raise AssertionError(f"soft-NMS per class: launches {counts} in "
+                             f"{len(forwards)} forwards (want {want})")
+    n_rois = redo(plain_soft(True), "serial soft-NMS")
+    report("soft-NMS per class", times, batch_ms, counts, n_rois,
+           "serial soft-NMS")
+    results["soft_nms_per_class"] = counts
+
+    # 3. class-agnostic soft-NMS: the serial kernel
+    m.nms_per_class = False
+    times, batch_ms, counts, n_warm = serve(4, 1, False, False)
+    want = {"hard_nms": 0, "soft_nms": len(forwards), "soft_nms_classes": 0,
+            "dcn": 0}
+    if counts != want:
+        raise AssertionError(f"soft-NMS class-agnostic: launches {counts} "
+                             f"in {len(forwards)} forwards (want {want})")
+    n_rois = redo(plain_soft(False), "serial soft-NMS")
+    report("soft-NMS class-agnostic", times, batch_ms, counts, n_rois,
+           "serial soft-NMS")
+    results["soft_nms_class_agnostic"] = counts
+    m.nms_type, m.nms_per_class = "nms", True
+    return results
 
 
-def run_trident_path(torch, sn, card):
+def run_trident_path(torch, sn, hn, card):
     """Phase 6: the trires50deform backbone served (eval forwards at
     1x3x768x1408) and trained (train-mode steps at 4x3x512x512) through
     the DCN kernels; returns the (forward, backward) launch counts."""
@@ -901,19 +1192,19 @@ def run_trident_path(torch, sn, card):
         return [o.detach() for o in outs], grads, stats
 
     n_serve, n_train = 12, 6
-    sn.launches = sn.classes_launches = 0     # every count to 0
-    tdc.fwd_launches = tdc.bwd_launches = 0
+    hn.launches = sn.launches = sn.classes_launches = 0     # every count
+    tdc.fwd_launches = tdc.bwd_launches = 0                 # to 0
     serve_out, serve_ms = timed(serve, n_serve)
     _, train_ms = timed(train_step, n_train)
     model.load_state_dict(state0)
     train_out = train_result(train_step())
     torch.cuda.synchronize()
     fwd, bwd = tdc.fwd_launches, tdc.bwd_launches     # read just after
-    soft = sn.launches + sn.classes_launches
+    soft = sn.launches + sn.classes_launches + hn.launches
     n_fwd = n_serve + n_train + 1
     if fwd != 15 * n_fwd or bwd != 15 * (n_train + 1) or soft != 0:
         raise AssertionError(f"trident path launched dcn_fwd {fwd}, dcn_bwd "
-                             f"{bwd}, soft_nms {soft} times in {n_fwd} "
+                             f"{bwd}, NMS {soft} times in {n_fwd} "
                              f"forwards and {n_train + 1} steps (want 15 "
                              "per forward, 15 per step, 0)")
     print(f"  launches: dcn_fwd {fwd} in {n_fwd} forwards ({fwd // n_fwd} "
@@ -1006,9 +1297,10 @@ def run_trident_path(torch, sn, card):
     return fwd, bwd
 
 
-def run_train_path(torch, sn, card):
-    """Phase 7: the flagship RRNet's train step at full width; returns the
-    (soft_nms, soft_nms_classes) launch counts of the phase."""
+def run_train_path(torch, sn, hn, card):
+    """Phase 7: the flagship RRNet's train step at full width at the
+    preset's defaults (stage-1 hard NMS); returns the (hard_nms, soft_nms,
+    soft_nms_classes) launch counts of the phase."""
     from rrnet_torch.ops import deform_conv as tdc
     from rrnet_torch.ops.heatmap import topk_decode, topk_desc
     from rrnet_torch.profile_train import synthetic_batch, train_config
@@ -1022,7 +1314,8 @@ def run_train_path(torch, sn, card):
     model = trainer.model
     print(f"  trainer: {state.flat_params.numel()} params, "
           f"{state.flat_stats.numel()} BN statistics, {cfg.model.dtype} "
-          f"compute, built in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"compute, stage-1 {cfg.model.nms_type_for_stage1}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     batch = synthetic_batch(np.random.RandomState(cfg.seed))
     n_warm, n_timed, capture_at = 2, 8, 5
     seen = []
@@ -1038,8 +1331,8 @@ def run_train_path(torch, sn, card):
             seen.append(None)
 
     handle = model.register_forward_hook(hook)
-    sn.launches = sn.classes_launches = 0     # every count to 0
-    tdc.fwd_launches = tdc.bwd_launches = 0
+    hn.launches = sn.launches = sn.classes_launches = 0     # every count
+    tdc.fwd_launches = tdc.bwd_launches = 0                 # to 0
     torch.cuda.reset_peak_memory_stats()
     ms, metrics = [], []
     for _ in range(n_warm + n_timed):
@@ -1051,25 +1344,36 @@ def run_train_path(torch, sn, card):
         metrics.append({k: float(v) for k, v in m.items()})
     peak = torch.cuda.max_memory_allocated()
 
-    # the class-parallel kernel on that step's own candidates, then the
-    # forward's top-R choice (models/rrnet.py, RRNet.select_rois)
+    # that step's own candidates: the plain fixpoint must select the
+    # step's ROIs, and the class-parallel and the serial soft-NMS kernels
+    # the same ROIs as each other (the forward's top-R choice,
+    # models/rrnet.py, RRNet.select_rois)
     hm, wh, off, rois, roi_scores, roi_classes, roi_valid = seen[capture_at]
+
+    def choose(masked):
+        top, idx = topk_desc(masked, model.stage2_rois)
+        valid = top > -torch.inf
+        return (torch.gather(dets.boxes, 1, idx[..., None].expand(-1, -1, 4)),
+                torch.where(valid, top, 0.0),
+                torch.gather(dets.classes, 1, idx), valid)
+
     with torch.no_grad():
         dets = topk_decode(hm, wh, off, k=model.topk)
-        ns, keep, _ = sn.soft_nms_auto(
-            dets.boxes, dets.scores.contiguous(), class_ids=dets.classes,
-            num_classes=cfg.num_classes, class_parallel=True,
-            sigma=model.soft_nms_sigma, iou_threshold=model.nms_iou,
-            score_threshold=model.soft_nms_score_threshold,
-            method="gaussian", max_out=model.stage2_rois)
-        top, idx = topk_desc(torch.where(keep, ns, -torch.inf),
-                             model.stage2_rois)
-        valid = top > -torch.inf
-        sel = (torch.gather(dets.boxes, 1, idx[..., None].expand(-1, -1, 4)),
-               torch.where(valid, top, 0.0),
-               torch.gather(dets.classes, 1, idx), valid)
+        keep = hn.hard_nms_reference(dets.boxes, dets.scores.contiguous(),
+                                     model.nms_iou, None, dets.classes)
+        plain = choose(torch.where(keep, dets.scores, -torch.inf))
+        by_route = {}
+        for route in (True, False):
+            ns, keep, _ = sn.soft_nms_auto(
+                dets.boxes, dets.scores.contiguous(), class_ids=dets.classes,
+                num_classes=cfg.num_classes, class_parallel=route,
+                sigma=model.soft_nms_sigma, iou_threshold=model.nms_iou,
+                score_threshold=model.soft_nms_score_threshold,
+                method="gaussian", max_out=model.stage2_rois)
+            by_route[route] = choose(torch.where(keep, ns, -torch.inf))
     same = [torch.equal(a, b) for a, b in
-            zip(sel, (rois, roi_scores, roi_classes, roi_valid))]
+            zip(plain, (rois, roi_scores, roi_classes, roi_valid))]
+    same_soft = [torch.equal(a, b) for a, b in zip(by_route[True], by_route[False])]
 
     # a batch of inf pixels: skipped, and the state bitwise as it was
     def bits():
@@ -1081,16 +1385,17 @@ def run_train_path(torch, sn, card):
     state, m_bad = trainer.train_step(state, bad)
     torch.cuda.synchronize()
     after = bits()
-    soft, classes = sn.launches, sn.classes_launches      # read just after
+    hard, soft, classes = (hn.launches, sn.launches,
+                           sn.classes_launches)          # read just after
     dcn = tdc.fwd_launches + tdc.bwd_launches
     handle.remove()
 
     n_fwd = len(seen)
-    if soft != n_fwd or classes != 1 or dcn:
-        raise AssertionError(f"train path launched soft_nms {soft} times "
-                             f"in {n_fwd} forwards (want 1 each), "
-                             f"soft_nms_classes {classes} (want 1), DCN "
-                             f"{dcn} (want 0)")
+    if hard != n_fwd or soft != 1 or classes != 1 or dcn:
+        raise AssertionError(f"train path launched hard_nms {hard} times "
+                             f"in {n_fwd} forwards (want 1 each), soft_nms "
+                             f"{soft} and soft_nms_classes {classes} (want "
+                             f"1 each, the cross-check), DCN {dcn} (want 0)")
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError(f"non-finite train losses: {metrics}")
     if not metrics[-1]["total"] < metrics[0]["total"] or any(
@@ -1098,9 +1403,14 @@ def run_train_path(torch, sn, card):
         raise AssertionError(f"train total did not fall: "
                              f"{[m['total'] for m in metrics]}")
     if not all(same):
-        raise AssertionError(f"class-parallel soft-NMS selected other ROIs "
-                             f"than the step's serial kernel (rois, "
-                             f"scores, classes, valid equal: {same})")
+        raise AssertionError(f"the plain hard-NMS fixpoint selected other "
+                             f"ROIs than the step's kernel (rois, scores, "
+                             f"classes, valid equal: {same})")
+    if not all(same_soft):
+        raise AssertionError(f"the serial soft-NMS kernel selected other "
+                             f"ROIs than the class-parallel one on the "
+                             f"step's candidates (rois, scores, classes, "
+                             f"valid equal: {same_soft})")
     changed = [k for k in before if not torch.equal(before[k], after[k])]
     if float(m_bad["skipped"]) != 1.0 or changed:
         raise AssertionError(f"inf batch: skipped {float(m_bad['skipped'])},"
@@ -1109,44 +1419,50 @@ def run_train_path(torch, sn, card):
           + "; ".join(f"{m['hm']:.4f} {m['wh']:.4f} {m['off']:.4f} "
                       f"{m['s2']:.4f} {m['total']:.4f}" for m in metrics),
           flush=True)
-    print(f"  launches: soft_nms {soft} in {n_fwd} forwards, "
-          f"soft_nms_classes {classes}; step {capture_at + 1}'s class-"
-          f"parallel selection == its serial one ({int(roi_valid.sum())} "
-          f"ROIs); inf batch skipped with params, moments, counts, step "
-          f"and BN statistics bitwise unchanged", flush=True)
+    print(f"  launches: hard_nms {hard} in {n_fwd} forwards, soft_nms "
+          f"{soft}, soft_nms_classes {classes}; step {capture_at + 1}'s ROI "
+          f"selection == the plain fixpoint's ({int(roi_valid.sum())} ROIs), "
+          f"and on its candidates the serial soft-NMS kernel selects the "
+          f"class-parallel kernel's ROIs ({int(by_route[True][3].sum())}); inf "
+          f"batch skipped with params, moments, counts, step and BN "
+          f"statistics bitwise unchanged", flush=True)
     timed = ms[n_warm:]
     print(f"  train step 4x512x512 on {card}: p50 "
           f"{float(np.percentile(timed, 50)):.2f} ms, min {min(timed):.2f},"
           f" max {max(timed):.2f} over {n_timed} after {n_warm} warm-up "
           f"({[round(x, 2) for x in ms]}); max_memory_allocated "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    return soft, classes
+    return hard, soft, classes
 
 
 def main(argv=None) -> int:
     import argparse
+    from pathlib import Path
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--before", metavar="DIR", help="a directory holding "
-                    "another version of rrnet_torch/csrc's DCN sources "
-                    "(dcn_fwd.cu, dcn_bwd.cu, dcn_common.cuh), e.g. the "
-                    "parent commit's; its kernels are built into DIR/build "
-                    "and timed beside this checkout's, in turns")
+                    "another version of some of rrnet_torch/csrc's sources "
+                    "(the DCN trio dcn_fwd.cu, dcn_bwd.cu, dcn_common.cuh; "
+                    "soft_nms_classes.cu), e.g. the parent commit's; its "
+                    "kernels are built into DIR/build and timed beside this "
+                    "checkout's, in turns")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from rrnet_torch.ops import hard_nms as hn
     from rrnet_torch.ops import soft_nms as sn
     from rrnet_torch.utils import native
 
     phase("device")
     card = card_line()
     print(card, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          "allow_tf32 off for cuDNN and matmul", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; TF32 at "
+          f"PyTorch's defaults: cudnn.conv.fp32_precision="
+          f"{torch.backends.cudnn.conv.fp32_precision!r}, "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}",
+          flush=True)
 
     phase("build")
     t0 = time.perf_counter()
@@ -1158,18 +1474,30 @@ def main(argv=None) -> int:
         for line in native.build_log(name):
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    before = None
+    before_pair = before_classes = None
     if args.before:
+        src = Path(args.before)
         t0 = time.perf_counter()
-        before = before_dcn(torch, args.before)
-        print(f"  the DCN kernels of {args.before} built in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if all((src / f).exists() for f in ("dcn_fwd.cu", "dcn_bwd.cu",
+                                            "dcn_common.cuh")):
+            before_pair = before_dcn(torch, src)
+        if (src / "soft_nms_classes.cu").exists():
+            before_classes = before_soft_nms_classes(torch, src)
+        if before_pair is None and before_classes is None:
+            raise SystemExit(f"--before {src}: no DCN trio and no "
+                             "soft_nms_classes.cu there")
+        print(f"  the kernels of {src} ("
+              + ", ".join(n for n, b in (("DCN", before_pair),
+                                         ("soft_nms_classes",
+                                          before_classes)) if b)
+              + f") built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("kernels vs plain")
     rng = np.random.RandomState(0)
     soft = check_soft_nms(torch, sn, rng)
-    classes = check_soft_nms_classes(torch, sn, rng, card)
-    dcn_fwd, dcn_bwd = check_dcn(torch, rng, card, before)
+    classes = check_soft_nms_classes(torch, sn, rng, card, before_classes)
+    hard = check_hard_nms(torch, hn, rng, card)
+    dcn_fwd, dcn_bwd = check_dcn(torch, rng, card, before_pair)
 
     phase("small-input reference")
     check_small_reference(torch)
@@ -1177,17 +1505,22 @@ def main(argv=None) -> int:
     check_small_trident(torch)
 
     phase("main path")
-    soft["launches"] = run_main_path(torch, sn, card)
+    counts = run_main_path(torch, sn, hn, card)
+    hard["launches"] = counts["defaults"]["hard_nms"]
+    classes["launches"] = counts["soft_nms_per_class"]["soft_nms_classes"]
+    soft["launches"] = counts["soft_nms_class_agnostic"]["soft_nms"]
+    soft["flagship_launches"] = (counts["defaults"]["soft_nms"]
+                                 + counts["soft_nms_per_class"]["soft_nms"])
 
     phase("trident path")
-    dcn_fwd["launches"], dcn_bwd["launches"] = run_trident_path(torch, sn,
-                                                                card)
+    dcn_fwd["launches"], dcn_bwd["launches"] = run_trident_path(
+        torch, sn, hn, card)
 
     phase("train path")
-    soft["train_path_launches"], classes["launches"] = run_train_path(
-        torch, sn, card)
+    (hard["train_path_launches"], soft["train_path_launches"],
+     classes["train_path_launches"]) = run_train_path(torch, sn, hn, card)
 
-    print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd]}),
+    print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import BatchNorm, Conv2d, max_pool, msra_init_
+from rrnet_torch.models.layers import (BatchNorm, Conv2d, conv2d, max_pool,
+                                       msra_init_)
 from rrnet_torch.ops.deform_conv import deform_conv2d
 
 
@@ -60,8 +61,8 @@ class SharedConv(nn.Module):
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         if not self.deform:
-            return [F.conv2d(x, self.weight, None, self.stride,
-                             d if self.kernel == 3 else 0, d)
+            return [conv2d(x, self.weight, None, self.stride,
+                           d if self.kernel == 3 else 0, d)
                     for x, d in zip(xs, self.dilations)]
         n_off = self.deformable_groups * 2 * self.kernel * self.kernel
         outs = []

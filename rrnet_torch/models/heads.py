@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import (Bottleneck, Conv2d, Linear,
+from rrnet_torch.models.layers import (Bottleneck, Conv2d, Linear, conv2d,
                                        torch_conv_init_)
 
 
@@ -83,10 +83,10 @@ class CenterNetWHHead(nn.Module):
         conv = F.relu(getattr(self, f"conv{stack}")(x))
         hp = getattr(self, f"hconv{stack}")
         wp = getattr(self, f"wconv{stack}")
-        h = F.conv2d(conv, hp.weight.to(self.dtype), hp.bias.to(self.dtype),
-                     padding=(self.pad, 0))
-        w = F.conv2d(conv, wp.weight.to(self.dtype), wp.bias.to(self.dtype),
-                     padding=(0, self.pad))
+        h = conv2d(conv, hp.weight.to(self.dtype), hp.bias.to(self.dtype),
+                   padding=(self.pad, 0))
+        w = conv2d(conv, wp.weight.to(self.dtype), wp.bias.to(self.dtype),
+                   padding=(0, self.pad))
         out = torch.stack([w, h], dim=-1)           # (B, p, H, W, 2)
         bsz, p, hh, ww, _ = out.shape
         return out.permute(0, 2, 3, 1, 4).reshape(bsz, hh, ww, 2 * p)

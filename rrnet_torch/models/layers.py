@@ -12,15 +12,75 @@ running statistics in f32, then cast to the activation dtype. In train
 mode it is flax's `nn.BatchNorm` (layers.py:225-246): f32 batch
 statistics with the biased variance, used both to normalise and for the
 running update `running = 0.9 * running + 0.1 * batch`.
+
+Every convolution of the port goes through `conv2d`, which runs an f32
+convolution at f32 precision in its forward and its backward, whatever
+the caller's global TF32 setting (PyTorch lets cuDNN take TF32 for f32
+convolutions by default).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules.utils import _pair
+
+
+@contextlib.contextmanager
+def cudnn_f32():
+    """cuDNN convolutions at full f32 precision (no TF32) inside the
+    block; the setting is put back on exit. It sets the convolutions'
+    own field: after a mix of that and the legacy `allow_tf32`, PyTorch
+    raises on reading `allow_tf32`, so neither is read or set here."""
+    conv = torch.backends.cudnn.conv
+    prev = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = prev
+
+
+class _F32Conv(torch.autograd.Function):
+    """An f32 convolution whose forward and backward both run inside
+    `cudnn_f32`: cuDNN reads its TF32 flag when the backward runs, after
+    any scope around the forward call has closed."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation):
+        ctx.save_for_backward(x, weight)
+        ctx.geometry = (_pair(stride), _pair(padding), _pair(dilation))
+        ctx.has_bias = bias is not None
+        with cudnn_f32():
+            return F.conv2d(x, weight, bias, stride, padding, dilation)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation = ctx.geometry
+        need = ctx.needs_input_grad
+        with cudnn_f32():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]] if ctx.has_bias else None,
+                stride, padding, dilation, False, [0, 0], 1,
+                [need[0], need[1], ctx.has_bias and need[2]])
+        return gx, gw, gb, None, None, None
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1):
+    """`F.conv2d`; for f32 inputs, at f32 precision in the forward and,
+    through `_F32Conv`, in the backward. Other dtypes run as given."""
+    if x.dtype != torch.float32:
+        return F.conv2d(x, weight, bias, stride, padding, dilation)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias)):
+        return _F32Conv.apply(x, weight, bias, stride, padding, dilation)
+    with cudnn_f32():
+        return F.conv2d(x, weight, bias, stride, padding, dilation)
 
 
 def torch_conv_init_(w: torch.Tensor, fan_in: int,
@@ -78,8 +138,8 @@ class Conv2d(nn.Module):
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
-                        self.stride, self.padding, self.dilation)
+        return conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
+                      self.stride, self.padding, self.dilation)
 
 
 class BatchNorm(nn.Module):

@@ -2,9 +2,10 @@
 `rrnet_tpu/models/rrnet.py:30-184`), eval and train forward.
 
 Stage 1: stacked-hourglass CenterNet heads per stack; the last stack is
-decoded to top-k candidates, NMS'd per image on the device (soft-NMS by
-the CUDA kernels of `ops/soft_nms.py` through `soft_nms_auto`, or the
-hard-NMS fixpoint), and cut to a static budget of R ROIs. Stage 2: 3x3
+decoded to top-k candidates, NMS'd per image on the device (hard NMS by
+the CUDA kernel of `ops/hard_nms.py`, or soft-NMS by the CUDA kernels of
+`ops/soft_nms.py` through `soft_nms_auto`), and cut to a static budget of
+R ROIs. Stage 2: 3x3
 ROI-align over relu(last feature) and a bottleneck regressor. Decode, NMS
 and ROI-align run in f32 whatever the compute dtype; in train mode the
 last feature is cast to f32 before ROI-align, so that its backward
@@ -24,7 +25,7 @@ from torch import nn
 from rrnet_torch.models.backbones import get_backbone
 from rrnet_torch.models.heads import CenterNetHead, CenterNetWHHead, FasterRCNNHead
 from rrnet_torch.ops.heatmap import topk_decode, topk_desc
-from rrnet_torch.ops.nms import hard_nms
+from rrnet_torch.ops.hard_nms import hard_nms
 from rrnet_torch.ops.roi_align import roi_align
 from rrnet_torch.ops.soft_nms import soft_nms_auto
 
@@ -88,14 +89,18 @@ class RRNet(nn.Module):
         index first among equal scores). Returns (rois, roi_scores with 0
         where invalid, roi_classes, roi_valid). The choice runs on
         detached tensors; the ROIs are gathered from `boxes` itself, so
-        gradients flow into them. Soft-NMS takes the serial kernel, as the
-        JAX model does (`soft_nms_auto` without `class_parallel`)."""
+        gradients flow into them. Per-class soft-NMS takes the
+        class-parallel kernel (`soft_nms_auto(class_parallel=True)`) where
+        the JAX model takes the serial one, which was faster on the TPU
+        (`rrnet_tpu/models/rrnet.py:135-138`); the two select the same
+        boxes with the same kept scores, bit for bit, so the ROIs are equal.
+        Class-agnostic soft-NMS takes the serial kernel."""
         cls_ids = classes if self.nms_per_class else None
         b_nd, s_nd = boxes.detach(), scores.detach()
         if self.nms_type == "soft_nms":
             new_scores, keep, _ = soft_nms_auto(
                 b_nd, s_nd, class_ids=cls_ids, num_classes=self.num_classes,
-                sigma=self.soft_nms_sigma,
+                class_parallel=True, sigma=self.soft_nms_sigma,
                 iou_threshold=self.nms_iou,
                 score_threshold=self.soft_nms_score_threshold,
                 method="gaussian", max_out=self.stage2_rois)

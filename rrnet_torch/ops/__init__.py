@@ -1,2 +1,2 @@
-"""Device ops: boxes, heatmap decode, NMS, soft-NMS (CUDA kernel),
-ROI-align, DCNv2 (plain version and CUDA kernels)."""
+"""Device ops: boxes, heatmap decode, NMS (hard NMS and soft-NMS CUDA
+kernels), ROI-align, DCNv2 (plain version and CUDA kernels)."""

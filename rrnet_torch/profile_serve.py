@@ -1,10 +1,11 @@
 """Where a Predictor request's time goes on the card.
 
-    python -m rrnet_torch.profile_serve [--requests N]
+    python -m rrnet_torch.profile_serve [--requests N] [--nms TYPE]
 
-Serves the flagship `rrnet` preset with stage-1 soft-NMS (full width,
-bf16, seeded random weights) on one 765x1360 image at a time, as
-`chip_smoke.py` does, and prints, as medians over N requests:
+Serves the flagship `rrnet` preset (full width, bf16, seeded random
+weights) with its stage-1 NMS, hard NMS by default or `--nms soft_nms`,
+on one 765x1360 image at a time, as `chip_smoke.py` does, and prints, as
+medians over N requests:
   * request latency without the profiler, and host staging (pad, pack,
     pinned upload);
   * the device span of the forward and of its parts, from CUDA events
@@ -79,11 +80,14 @@ def _kernel_ms(fn, n):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--nms", choices=("nms", "soft_nms"),
+                    default=config.rrnet_config().model.nms_type_for_stage1,
+                    help="stage-1 NMS (default: the preset's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
 
-    cfg = config.rrnet_config(**{"model.nms_type_for_stage1": "soft_nms"})
+    cfg = config.rrnet_config(**{"model.nms_type_for_stage1": args.nms})
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator().manual_seed(cfg.seed))
     pred = Predictor(cfg, model, device="cuda")
@@ -123,7 +127,8 @@ def main(argv=None) -> None:
         fwd_kernel_ms, _ = _kernel_ms(lambda: model(x, valid_hw=vhw), n)
 
     print(f"{torch.cuda.get_device_name(0)}; {n} requests of 765x1360, "
-          f"transport {cfg.val.transport}; medians in ms")
+          f"stage-1 {args.nms}, transport {cfg.val.transport}; medians in "
+          "ms")
     print(f"request latency (no profiler): p50 {lat_ms:.2f}, "
           f"min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}")
     print(f"outside the forward: {lat_ms - span:.2f} (latency - forward "

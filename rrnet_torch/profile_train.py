@@ -3,20 +3,20 @@
     python -m rrnet_torch.profile_train [--iters N]
 
 Builds `train.Trainer` on the `rrnet` preset at full width (hourglass-104,
-2 stacks, bf16 compute, f32 parameters and Adam state, stage-1 soft-NMS,
-stage 2 from step 0) with seeded weights, and one seeded synthetic batch
+2 stacks, bf16 compute, f32 parameters and Adam state, the preset's
+stage-1 hard NMS, stage 2 from step 0) with seeded weights, and one seeded synthetic batch
 of 4 uint8 512x512 crops with 100-250 boxes each (`synthetic_batch`, as
 `chip_smoke.py` drives it). It prints, as medians over N steps after 2
 warm-ups:
   * wall time per step without the profiler (host clock around a step
     that ends in a synchronize), and the peak device memory;
   * the device span of each phase, from CUDA events: the forward and, in
-    it, the backbone, the stage-1 heads and the rest (decode, soft-NMS,
+    it, the backbone, the stage-1 heads and the rest (decode, NMS,
     ROI-align, stage 2); the targets and losses; the backward with the
     gradient flatten; the Adam update;
   * kernel time per step from `torch.profiler`, the device's busy share
-    of the unprofiled wall time, the soft-NMS kernel's time, and the
-    busiest kernels.
+    of the unprofiled wall time, the NMS kernels' time, and the busiest
+    kernels.
 Needs a CUDA device.
 """
 
@@ -32,11 +32,10 @@ from rrnet_torch import config
 
 
 def train_config():
-    """The preset as the train path runs it: stage-1 soft-NMS, and stage 2
-    on from the first step (the one cut, so that its loss and gradient
-    run within a few steps)."""
-    return config.rrnet_config(**{"model.nms_type_for_stage1": "soft_nms",
-                                  "train.stage2_warmup_steps": 0})
+    """The preset as the train path runs it: its defaults, and stage 2 on
+    from the first step (the one cut, so that its loss and gradient run
+    within a few steps)."""
+    return config.rrnet_config(**{"train.stage2_warmup_steps": 0})
 
 
 def synthetic_batch(rng: np.random.RandomState, b: int = 4,
@@ -157,12 +156,13 @@ def main(argv=None) -> None:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             rows[e.key] = (e.self_device_time_total / 1e3 / n, e.count / n)
     kernel_ms = sum(v for v, _ in rows.values())
-    nms = {k: v for k, v in rows.items() if "soft_nms" in k}
+    nms = {k: v for k, v in rows.items() if "nms_" in k}
     p50 = float(np.median(wall))
     heads = ms["hm"] + ms["wh"] + ms["offset"]
-    print(f"{torch.cuda.get_device_name(0)}; rrnet preset, bf16, soft-NMS "
-          f"stage 1, batch 4x512x512, {int(batch['valid'].sum())} boxes; "
-          f"medians over {n} steps after 2 warm-ups, ms")
+    print(f"{torch.cuda.get_device_name(0)}; rrnet preset, bf16, "
+          f"{cfg.model.nms_type_for_stage1} stage 1, batch 4x512x512, "
+          f"{int(batch['valid'].sum())} boxes; medians over {n} steps after "
+          "2 warm-ups, ms")
     print(f"step wall p50 {p50:.2f} (min {min(wall):.2f}, max "
           f"{max(wall):.2f}); peak memory {peak / 2**30:.2f} GiB")
     print(f"device span: step {ms['step']:.2f}; forward {ms['forward']:.2f} "
@@ -172,7 +172,7 @@ def main(argv=None) -> None:
           f"{ms['targets+losses']:.2f}; backward {float(np.median(back)):.2f};"
           f" update {ms['update']:.2f}")
     print(f"kernels per step {kernel_ms:.2f}: device busy "
-          f"{100 * kernel_ms / p50:.1f}% of the wall time; soft-NMS "
+          f"{100 * kernel_ms / p50:.1f}% of the wall time; NMS kernels "
           + ", ".join(f"{k.split('<')[0]} {v:.3f} x{c:g}"
                       for k, (v, c) in nms.items()))
     for k, (v, c) in sorted(rows.items(), key=lambda r: -r[1][0])[:15]:

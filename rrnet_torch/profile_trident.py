@@ -1,10 +1,10 @@
 """Where the trident backbone's time goes on the card.
 
-    python -m rrnet_torch.profile_trident [--iters N]
+    python -m rrnet_torch.profile_trident [--iters N] [--tf32]
 
-Builds `trires50deform` at full width in f32 (TF32 off) with seeded
-weights and nonzero offset/mask convs (`path_model`, as `chip_smoke.py`
-drives it) and prints, for the serve forward at 1x3x768x1408 (eval) and
+Builds `trires50deform` at full width in f32 with seeded weights and
+nonzero offset/mask convs (`path_model`, as `chip_smoke.py` drives it) and
+prints, for the serve forward at 1x3x768x1408 (eval) and
 the train step at 4x3x512x512 (train-mode BN, backward of a seeded
 loss), as medians over N iterations:
   * wall time per iteration without the profiler (host clock around
@@ -14,18 +14,22 @@ loss), as medians over N iterations:
     and weight kernels), and the device's busy share of the unprofiled
     wall time;
   * the busiest kernels.
-Needs a CUDA device.
+The port runs its f32 convolutions at f32 precision whatever PyTorch's
+TF32 setting (`models.layers.conv2d`); `--tf32` lifts that pin for this
+run, so that cuDNN takes TF32 at PyTorch's default, for a comparison of
+the two precisions. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
-from rrnet_torch.models import build_backbone
+from rrnet_torch.models import build_backbone, layers
 
 SERVE_SHAPE = (1, 3, 768, 1408)
 TRAIN_SHAPE = (4, 3, 512, 512)
@@ -104,11 +108,14 @@ def _report(name, wall, kernel_ms, rows):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--tf32", action="store_true",
+                    help="let cuDNN run the f32 convolutions in TF32 "
+                         "(PyTorch's default) instead of the port's f32 pin")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_trident needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.tf32:
+        layers.cudnn_f32 = contextlib.nullcontext
     n = args.iters
     model = path_model()
     rng = np.random.RandomState(7)
@@ -128,8 +135,10 @@ def main(argv=None) -> None:
         outs = model(x_train)
         sum((o * c).sum() / o.numel() for o, c in zip(outs, cts)).backward()
 
-    print(f"{torch.cuda.get_device_name(0)}; trires50deform f32, TF32 off; "
-          f"medians over {n} iterations after 2 warm-ups")
+    precision = ("TF32 convolutions (PyTorch's default)" if args.tf32 else
+                 "f32 convolutions (the port's pin)")
+    print(f"{torch.cuda.get_device_name(0)}; trires50deform f32, "
+          f"{precision}; medians over {n} iterations after 2 warm-ups")
     for name, fn in (("serve forward 1x3x768x1408", serve),
                      ("train step 4x3x512x512", train_step)):
         _wall_ms(fn, 2)

@@ -84,6 +84,54 @@ def test_rrnet_forward_matches_jax(nms_type):
     assert got.roi_valid.any()
 
 
+def test_select_rois_routes_soft_nms_by_class_mode(monkeypatch):
+    """Per-class soft-NMS in `select_rois` takes the class-parallel route
+    (its plain version on the CPU), with the ROIs of the serial route;
+    class-agnostic soft-NMS takes the serial route; hard NMS takes
+    `ops.hard_nms`."""
+    from rrnet_torch.models import rrnet as trrnet
+    from rrnet_torch.ops import hard_nms as thn
+    from rrnet_torch.ops import soft_nms as tsn
+    calls = []
+
+    def spy(module, name):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, **kw: (
+            calls.append(name), real(*a, **kw))[1])
+
+    spy(tsn, "soft_nms_classes_reference")
+    spy(tsn, "soft_nms_reference")
+    spy(thn, "hard_nms_reference")
+    rng = np.random.RandomState(5)
+    xy = rng.rand(2, 64, 2) * 40.0
+    wh = rng.rand(2, 64, 2) * 12.0 + 2.0
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                             .astype(np.float32))
+    scores = torch.from_numpy(rng.beta(0.6, 2.5, (2, 64)).astype(np.float32))
+    classes = torch.from_numpy(rng.randint(0, 10, (2, 64)).astype(np.int32))
+    tm = RRNet(backbone="tiny_hourglass", topk=64, stage2_rois=16,
+               nms_type="soft_nms", soft_nms_score_threshold=0.1)
+    got = tm.select_rois(boxes, scores, classes)
+    assert calls == ["soft_nms_classes_reference"]
+
+    # the serial route on the same candidates
+    serial = tsn.soft_nms_auto
+    monkeypatch.setattr(trrnet, "soft_nms_auto", lambda *a, **kw: serial(
+        *a, **{k: v for k, v in kw.items() if k != "class_parallel"}))
+    want = tm.select_rois(boxes, scores, classes)
+    assert calls[1:] == ["soft_nms_reference"]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[3].sum() == 32          # a full budget in both images
+
+    monkeypatch.setattr(trrnet, "soft_nms_auto", serial)
+    tm.nms_per_class = False
+    tm.select_rois(boxes, scores, classes)
+    tm.nms_type = "nms"
+    tm.select_rois(boxes, scores, classes)
+    assert calls[2:] == ["soft_nms_reference", "hard_nms_reference"]
+
+
 def test_converter_maps_full_width_rrnet():
     """Every leaf of the real preset's parameter tree (hourglass-104, two
     stacks, 10 classes) lands on the port's state_dict with its shape."""
