@@ -10,48 +10,144 @@
 //   w    = gaussian expf(-ov*ov/sigma) | linear ov>thr ? 1-ov : 1
 //          | hard ov>thr ? 0 : 1
 // Each step picks the FIRST index holding the max among active,
-// unselected slots, marks it selected with rank = step, decays every
-// other active unselected slot, and deactivates a slot only where it
-// overlaps the pick and its decayed score fell below score_threshold.
+// unselected ("open") slots, marks it selected with rank = step, decays
+// every other open slot, and deactivates a slot only where it overlaps
+// the pick and its decayed score fell below score_threshold.
 // Build with -fmad=false and without fast math, so that no multiply-add
 // is contracted and expf is the accurate one: the results then round
 // like the op-by-op PyTorch version (ops/nms.py::soft_nms) and keep/rank
 // compare exactly.
 //
 // What bounds it on the card: neither bytes nor arithmetic. An image's
-// whole state is ~42 KB (K=1500) and each step does ~20 flops per slot;
-// what costs is the chain of up to max_out=512 DEPENDENT steps, each a
-// block-wide argmax (warp shuffles, then one pass across warps through
-// shared memory) and two __syncthreads. The design keeps that chain as
-// short as it can be: all per-slot state (box, area, class, score) sits
-// in registers of the owning thread for the whole loop, the flags are
-// bits, the picked box is read back through L1 by every thread instead
-// of a third barrier, and the loop leaves as soon as no candidate is
-// left (a block-uniform break). Images run in parallel, one block each.
+// whole state is ~42 KB (K=1500) and each step does ~22 operations per
+// open slot; what costs is the chain of up to max_out=512 DEPENDENT
+// steps (310-444 selections an image at K=1500), each a block-wide argmax
+// and a decay, issued by every warp of the block. The design shortens
+// each step:
+//  * the block is sized to K: one warp per 64 boxes (two slots a lane)
+//    up to kDefaultWarps = 24, more slots a lane beyond (K <= 4096). At
+//    K=1500 a cap of 24 warps beat 16 and 8 (chip_smoke.py's sweep);
+//  * each thread keeps its slots' boxes, areas, classes and scores in
+//    registers (the loops over them unroll) and their open and selected
+//    flags as bit masks; the boxes are also in shared memory, where a
+//    step reads the picked box back (never from global memory);
+//  * index i lives in slot i / nt of thread (i % nt % nw) * 32 + i % nt
+//    / nw: consecutive indices go to different warps, so the best few
+//    candidates (decoded top-k candidates arrive sorted by score) are
+//    spread over the warps;
+//  * the argmax is one packed reduction: an order-preserving u32 of the
+//    f32 score (-0 read as +0), maximised by `redux.sync`, then the lowest
+//    index among the lanes that hold it, minimised the same way; one named
+//    barrier a step joins the warps, whose partials are double-buffered
+//    in shared memory;
+//  * the decay first tests the overlap (iw > 0 && ih > 0, and the class
+//    when gated) of each open slot; the division, expf and threshold run
+//    only for slots that overlap the pick. For the others ov = 0, so the
+//    weight is exactly 1 and nothing deactivates: skipping them is
+//    bit-exact whenever a zero overlap weighs exactly 1 (gaussian with
+//    sigma > 0, linear, hard with a threshold >= 0); otherwise (`skip` =
+//    0) every open slot takes the full arithmetic.
+// A second design of the same loop, multi-pick rounds (`top` = 4 through
+// rrnet_soft_nms_ex; the default is one pick a step), takes several steps
+// a round where the serial order provably allows it. Take the open
+// candidates in key order (score descending, lower index first), c1, c2,
+// ... If c1..cp pairwise do not overlap (as above) and c2..cp score above
+// 0, the serial loop picks exactly c1..cp in its next p steps, provided
+// every weight lies in [0, 1] and a zero overlap weighs exactly 1 (the
+// skip condition; an overlapping pair has ov in [0, 1]): after c1, c2 is
+// multiplied by exactly 1 and stays active, and every other open score
+// only moves toward 0, so it stays below c2 (> 0); a box tied with c2 at
+// a lower index was ahead of c2 already. A round gives the picks ranks
+// step..step+p-1 and applies their decays in that order, each slot
+// dropping out at the first that deactivates it, as the serial loop does.
+// Each warp offers its best `top` open slots (the global best `top` are
+// among them), every warp merges the offers after the round's one
+// barrier and tests the pairs; p is capped by the steps left, and is 1
+// where the condition fails. It is bit-equal to the default and cuts the
+// rounds 3.6-3.9x at K=1500, but on an H100 a round costs ~3.9 steps: the
+// barrier it shares is a small part of a step, and the warps' reduction
+// passes and every open slot's test are paid per pick. So it is not the
+// default; chip_smoke.py measures it beside the default in every run.
 // The TPU kernel's (8, K/8) tiling, its K-to-1024 padding and its
 // fixed-trip chunking (Mosaic could not compile a while loop) are TPU
 // layout and are not carried over.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSlots = 8;  // register slots per thread
+constexpr int kMaxWarps = 24;              // the block's largest size
+constexpr int kMaxThreads = kMaxWarps * 32;
+constexpr int kDefaultWarps = 24;          // chosen by measurement
+constexpr int kDefaultTop = 1;             // one pick a step
+constexpr int kMaxTop = 4;                 // multi-pick rounds
+constexpr int kBoxesPerWarp = 64;          // one more warp per 64 boxes
+constexpr int kMaxK = 4096;
 constexpr float kNeg = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
 
-// (value, index) max with the lower index winning ties.
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+// An unsigned key that orders as the f32 score does (-0 read as +0).
+__device__ __forceinline__ unsigned score_key(float v) {
+  const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <int SLOTS>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+struct Params {
+  int K, steps, method;
+  float sigma, iou_threshold, score_threshold;
+  int skip, nw;
+};
+
+// Do two boxes overlap in the decay's sense (iw > 0 && ih > 0)?
+__device__ __forceinline__ bool overlaps(const float4& a, const float4& b) {
+  const float iw = fminf(a.z, b.z) - fmaxf(a.x, b.x) + 1.0f;
+  const float ih = fminf(a.w, b.w) - fmaxf(a.y, b.y) + 1.0f;
+  return iw > 0.0f && ih > 0.0f;
+}
+
+// Slot (x1, y1, x2, y2, area, c) with score `cur`, open, takes the decay
+// of pick `p` (area `parea`, class `pc`); clears `open` where it drops.
+__device__ __forceinline__ void decay(const float4& p, float parea, int pc,
+                                      float x1, float y1, float x2, float y2,
+                                      float area, int c, float& cur,
+                                      bool& open, const Params& a,
+                                      bool gated) {
+  const float iw = fminf(p.z, x2) - fmaxf(p.x, x1) + 1.0f;
+  const float ih = fminf(p.w, y2) - fmaxf(p.y, y1) + 1.0f;
+  bool pos = iw > 0.0f && ih > 0.0f;
+  if (gated && c != pc) pos = false;
+  if (!pos && a.skip) return;       // weight exactly 1, stays active
+  const float inter = fmaxf(iw, 0.0f) * fmaxf(ih, 0.0f);
+  float ov = inter / fmaxf(parea + area - inter, 1e-12f);
+  if (!pos) ov = 0.0f;
+  float w;
+  if (a.method == 2) {
+    w = expf(-(ov * ov) / a.sigma);
+  } else if (a.method == 1) {
+    w = ov > a.iou_threshold ? 1.0f - ov : 1.0f;
+  } else {
+    w = ov > a.iou_threshold ? 0.0f : 1.0f;
+  }
+  cur = cur * w;
+  if (pos && cur < a.score_threshold) open = false;
+}
+
+__device__ __forceinline__ float box_area(const float4& b) {
+  return (b.z - b.x + 1.0f) * (b.w - b.y + 1.0f);
+}
+
+// One image on the block's nw warps. Thread (warp, lane) owns the indices
+// pos + j * nt, pos = lane * nw + warp, j < SLOTS. TOP = 1 runs one pick
+// a step; TOP > 1 runs multi-pick rounds (the caller checked the skip
+// condition).
+template <int SLOTS, int TOP>
+__global__ void __launch_bounds__(kMaxThreads)
 soft_nms_kernel(const float* __restrict__ boxes,          // (B, K, 4)
                 const float* __restrict__ scores,         // (B, K)
                 const unsigned char* __restrict__ valid,  // (B, K) or null
@@ -59,149 +155,225 @@ soft_nms_kernel(const float* __restrict__ boxes,          // (B, K, 4)
                 float* __restrict__ out_scores,           // (B, K)
                 unsigned char* __restrict__ keep,         // (B, K)
                 int* __restrict__ rank,                   // (B, K)
-                int K, int steps, int method, float sigma,
-                float iou_threshold, float score_threshold) {
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ float best_v;
-  __shared__ int best_i;
+                int* __restrict__ rounds,                 // (B,) or null
+                Params a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* sbox = reinterpret_cast<float4*>(smem);         // K boxes
+  int* scls = reinterpret_cast<int*>(sbox + a.K);         // K, when gated
+  __shared__ unsigned part_key[2][kMaxWarps * TOP];
+  __shared__ unsigned part_idx[2][kMaxWarps * TOP];
 
-  const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* bx = boxes + (size_t)b * K * 4;
-  const int* bc = cls ? cls + (size_t)b * K : nullptr;
+  const int nt = a.nw * 32;
+  const int pos = lane * a.nw + warp;
+  const int K = a.K;
+  const size_t base = (size_t)blockIdx.x * K;
+  const float4* bx = reinterpret_cast<const float4*>(boxes) + base;
+  const bool gated = cls != nullptr;
 
   float x1[SLOTS], y1[SLOTS], x2[SLOTS], y2[SLOTS], area[SLOTS], cur[SLOTS];
   int c[SLOTS];
-  unsigned active = 0u, selected = 0u;  // bit j: slot tid + j*kThreads
-
+  unsigned open = 0u, sel = 0u;   // bit j: index pos + j * nt
 #pragma unroll
   for (int j = 0; j < SLOTS; ++j) {
-    const int i = tid + j * kThreads;
-    x1[j] = y1[j] = x2[j] = y2[j] = 0.0f;
-    area[j] = 0.0f;
+    const int i = pos + j * nt;
+    x1[j] = y1[j] = x2[j] = y2[j] = area[j] = 0.0f;
     cur[j] = kNeg;
     c[j] = 0;
     if (i < K) {
-      x1[j] = bx[i * 4 + 0];
-      y1[j] = bx[i * 4 + 1];
-      x2[j] = bx[i * 4 + 2];
-      y2[j] = bx[i * 4 + 3];
-      area[j] = (x2[j] - x1[j] + 1.0f) * (y2[j] - y1[j] + 1.0f);
-      if (bc) c[j] = bc[i];
-      const bool ok = valid == nullptr || valid[(size_t)b * K + i] != 0;
-      if (ok) {
-        cur[j] = scores[(size_t)b * K + i];
-        active |= 1u << j;
+      const float4 v = bx[i];
+      sbox[i] = v;
+      x1[j] = v.x;
+      y1[j] = v.y;
+      x2[j] = v.z;
+      y2[j] = v.w;
+      area[j] = box_area(v);
+      if (gated) {
+        c[j] = cls[base + i];
+        scls[i] = c[j];
       }
-      rank[(size_t)b * K + i] = K;
+      if (valid == nullptr || valid[base + i] != 0) {
+        cur[j] = scores[base + i];
+        open |= 1u << j;
+      }
+      rank[base + i] = K;
     }
   }
+  __syncthreads();
 
-  for (int step = 0; step < steps; ++step) {
-    // 1. block-wide first argmax over active, unselected slots
-    float v = kNeg;
-    int vi = K;
+  const unsigned neg_key = score_key(kNeg);  // only scores above count
+  int parity = 0;
+  int step = 0;
+  int n_rounds = 0;
+  while (step < a.steps) {
+    // the warp's best TOP open slots, best first (TOP passes)
+    unsigned taken = 0u;
+    unsigned best = neg_key, pick = UINT_MAX;
 #pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const bool cand = ((active & ~selected) >> j) & 1u;
-      // slots of one thread come in increasing index order, so a
-      // strict > keeps the first of equal values
-      if (cand && cur[j] > v) {
-        v = cur[j];
-        vi = tid + j * kThreads;
-      }
-    }
+    for (int t = 0; t < TOP; ++t) {
+      unsigned key = neg_key, idx = UINT_MAX;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, vi, off);
-      better(v, vi, ov, oi);
-    }
-    if (lane == 0) {
-      red_v[warp] = v;
-      red_i[warp] = vi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < kWarps ? red_v[lane] : kNeg;
-      vi = lane < kWarps ? red_i[lane] : K;
+      for (int j = 0; j < SLOTS; ++j) {
+        const unsigned k = score_key(cur[j]);
+        // indices rise with j, so a strict > keeps the first of equals
+        if ((((open & ~taken) >> j) & 1u) && k > key) {
+          key = k;
+          idx = pos + j * nt;
+        }
+      }
+      best = __reduce_max_sync(kFull, key);
+      pick = __reduce_min_sync(kFull, key == best ? idx : UINT_MAX);
+      if (TOP > 1) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, vi, off);
-        better(v, vi, ov, oi);
+        for (int j = 0; j < SLOTS; ++j) {
+          if (pick == (unsigned)(pos + j * nt)) taken |= 1u << j;
+        }
       }
-      if (lane == 0) {
-        best_v = v;
-        best_i = vi;
+      if (lane == 0 && (TOP > 1 || a.nw > 1)) {
+        part_key[parity][warp * TOP + t] = best;
+        part_idx[parity][warp * TOP + t] = pick;
       }
-    }
-    __syncthreads();
-    const float mv = best_v;
-    const int m = best_i;
-    // 2. nothing left: every thread reads the same value, so all leave
-    if (!(mv > kNeg)) break;
-
-    // 3. mark the pick
-    if (m % kThreads == tid) {
-      selected |= 1u << (m / kThreads);
-      rank[(size_t)b * K + m] = step;
     }
 
-    // 4.-5. decay the others; drop overlapping ones below the threshold
-    const float bx1 = bx[m * 4 + 0];
-    const float by1 = bx[m * 4 + 1];
-    const float bx2 = bx[m * 4 + 2];
-    const float by2 = bx[m * 4 + 3];
-    const int bcls = bc ? bc[m] : 0;
-    const float barea = (bx2 - bx1 + 1.0f) * (by2 - by1 + 1.0f);
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      if (!(((active & ~selected) >> j) & 1u)) continue;
-      const float iw = fminf(bx2, x2[j]) - fmaxf(bx1, x1[j]) + 1.0f;
-      const float ih = fminf(by2, y2[j]) - fmaxf(by1, y1[j]) + 1.0f;
-      bool pos = iw > 0.0f && ih > 0.0f;
-      const float inter = fmaxf(iw, 0.0f) * fmaxf(ih, 0.0f);
-      float ov = inter / fmaxf(barea + area[j] - inter, 1e-12f);
-      if (!pos) ov = 0.0f;
-      if (bc && c[j] != bcls) {
-        ov = 0.0f;
-        pos = false;
-      }
-      float w;
-      if (method == 2) {
-        w = expf(-(ov * ov) / sigma);
-      } else if (method == 1) {
-        w = ov > iou_threshold ? 1.0f - ov : 1.0f;
+    // every warp merges the offers into the block's best TOP
+    unsigned gk[TOP], gi[TOP];
+    if (TOP == 1 && a.nw == 1) {
+      gk[0] = best;
+      gi[0] = pick;
+    } else {
+      if (a.nw > 1) {
+        named_barrier(1, nt);
       } else {
-        w = ov > iou_threshold ? 0.0f : 1.0f;
+        __syncwarp();
       }
-      cur[j] = cur[j] * w;
-      if (pos && cur[j] < score_threshold) active &= ~(1u << j);
+      constexpr int R = (kMaxWarps * TOP + 31) / 32;
+      unsigned mk[R], mi[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int e = lane + 32 * r;
+        const bool in = e < a.nw * TOP;
+        mk[r] = in ? part_key[parity][e] : neg_key;
+        mi[r] = in ? part_idx[parity][e] : UINT_MAX;
+      }
+#pragma unroll
+      for (int t = 0; t < TOP; ++t) {
+        unsigned key = neg_key, idx = UINT_MAX;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (mk[r] > key || (mk[r] == key && mi[r] < idx)) {
+            key = mk[r];
+            idx = mi[r];
+          }
+        }
+        gk[t] = __reduce_max_sync(kFull, key);
+        gi[t] = __reduce_min_sync(kFull, key == gk[t] ? idx : UINT_MAX);
+        if (TOP > 1) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (mi[r] == gi[t]) {
+              mk[r] = neg_key;
+              mi[r] = UINT_MAX;
+            }
+          }
+        }
+      }
+      parity ^= 1;
     }
+    if (gk[0] == neg_key) break;      // nothing open above -1e30
+    ++n_rounds;
+
+    // the round's picks: the longest prefix that the serial loop takes
+    // in this order (TOP = 1: the best alone)
+    float4 pb[TOP];
+    int pc[TOP];
+    int p = 1;
+#pragma unroll
+    for (int t = 0; t < TOP; ++t) {
+      const bool real = gk[t] != neg_key;
+      pb[t] = real ? sbox[gi[t]] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      pc[t] = real && gated ? scls[gi[t]] : 0;
+      if (t > 0) {
+        bool ok = p == t && gk[t] > score_key(0.0f) && step + t < a.steps;
+#pragma unroll
+        for (int s = 0; s < t; ++s) {
+          ok = ok && !(overlaps(pb[s], pb[t]) && (!gated || pc[s] == pc[t]));
+        }
+        p += ok;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TOP; ++t) {
+      if (t < p) {
+#pragma unroll
+        for (int j = 0; j < SLOTS; ++j) {
+          if (gi[t] == (unsigned)(pos + j * nt)) {
+            open &= ~(1u << j);
+            sel |= 1u << j;
+            rank[base + gi[t]] = step + t;
+          }
+        }
+      }
+    }
+    // their decays, in pick order
+#pragma unroll
+    for (int t = 0; t < TOP; ++t) {
+      if (t < p) {
+        const float parea = box_area(pb[t]);
+#pragma unroll
+        for (int j = 0; j < SLOTS; ++j) {
+          if (!((open >> j) & 1u)) continue;
+          bool still = true;
+          decay(pb[t], parea, pc[t], x1[j], y1[j], x2[j], y2[j], area[j],
+                c[j], cur[j], still, a, gated);
+          if (!still) open &= ~(1u << j);
+        }
+      }
+    }
+    step += p;
   }
 
+  if (rounds != nullptr && tid == 0) rounds[blockIdx.x] = n_rounds;
 #pragma unroll
   for (int j = 0; j < SLOTS; ++j) {
-    const int i = tid + j * kThreads;
+    const int i = pos + j * nt;
     if (i < K) {
-      out_scores[(size_t)b * K + i] = cur[j];
-      keep[(size_t)b * K + i] = (selected >> j) & 1u;
+      out_scores[base + i] = cur[j];
+      keep[base + i] = (sel >> j) & 1u;
     }
   }
 }
 
-template <int SLOTS>
-void launch(const float* boxes, const float* scores, const unsigned char* valid,
-            const int* cls, float* out_scores, unsigned char* keep, int* rank,
-            int B, int K, int steps, int method, float sigma, float iou_thr,
-            float score_thr, cudaStream_t stream) {
-  soft_nms_kernel<SLOTS><<<B, kThreads, 0, stream>>>(
-      boxes, scores, valid, cls, out_scores, keep, rank, K, steps, method,
-      sigma, iou_thr, score_thr);
+template <int SLOTS, int TOP>
+int launch(const float* boxes, const float* scores, const unsigned char* valid,
+           const int* cls, float* out_scores, unsigned char* keep, int* rank,
+           int* rounds, int B, const Params& a, cudaStream_t stream) {
+  const size_t smem = (size_t)a.K * (sizeof(float4) + (cls ? sizeof(int) : 0));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        soft_nms_kernel<SLOTS, TOP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  soft_nms_kernel<SLOTS, TOP><<<B, a.nw * 32, smem, stream>>>(
+      boxes, scores, valid, cls, out_scores, keep, rank, rounds, a);
+  return (int)cudaGetLastError();
+}
+
+template <int TOP>
+int launch_slots(int slots, const float* boxes, const float* scores,
+                 const unsigned char* valid, const int* cls,
+                 float* out_scores, unsigned char* keep, int* rank,
+                 int* rounds, int B, const Params& a, cudaStream_t s) {
+#define RRNET_ARGS \
+  boxes, scores, valid, cls, out_scores, keep, rank, rounds, B, a, s
+  if (slots <= 2) return launch<2, TOP>(RRNET_ARGS);
+  if (slots <= 4) return launch<4, TOP>(RRNET_ARGS);
+  if (slots <= 6) return launch<6, TOP>(RRNET_ARGS);
+  if (slots <= 8) return launch<8, TOP>(RRNET_ARGS);
+  return launch<16, TOP>(RRNET_ARGS);
+#undef RRNET_ARGS
 }
 
 }  // namespace
@@ -209,7 +381,50 @@ void launch(const float* boxes, const float* scores, const unsigned char* valid,
 extern "C" {
 
 // Largest K one launch takes.
-int rrnet_soft_nms_max_k() { return kMaxSlots * kThreads; }
+int rrnet_soft_nms_max_k() { return kMaxK; }
+
+// rrnet_soft_nms with the block's largest number of warps (1..24; 0 for
+// the default) and the candidates a round offers (1 = one pick a step, 4
+// = multi-pick rounds; 0 for the default) chosen by the caller, for
+// measurements; `rounds` (B ints, or null) receives each image's number
+// of rounds (barrier rounds; equal to its selections where a round takes
+// one pick). Where the settings do not meet the multi-pick condition the
+// rounds take one pick whatever `top` says.
+int rrnet_soft_nms_ex(const float* boxes, const float* scores,
+                      const unsigned char* valid, const int* cls,
+                      float* out_scores, unsigned char* keep, int* rank,
+                      int B, int K, int steps, int method, float sigma,
+                      float iou_thr, float score_thr, int max_warps, int top,
+                      int* rounds, void* stream) {
+  if (max_warps == 0) max_warps = kDefaultWarps;
+  if (top == 0) top = kDefaultTop;
+  if (B < 1 || K < 1 || K > kMaxK || max_warps < 1 ||
+      max_warps > kMaxWarps || (top != 1 && top != kMaxTop) ||
+      max_warps * 32 * 16 < K) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params a;
+  a.K = K;
+  a.steps = steps;
+  a.method = method;
+  a.sigma = sigma;
+  a.iou_threshold = iou_thr;
+  a.score_threshold = score_thr;
+  // a zero overlap gives weight exactly 1 (and no deactivation), and
+  // every weight lies in [0, 1], for these settings: the decay may skip
+  // non-overlapping slots and rounds may take several picks
+  a.skip = method == 2 ? sigma > 0.0f : method == 1 ? 1 : !(0.0f > iou_thr);
+  a.nw = (K + kBoxesPerWarp - 1) / kBoxesPerWarp;
+  if (a.nw > max_warps) a.nw = max_warps;
+  const int slots = (K + a.nw * 32 - 1) / (a.nw * 32);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (top > 1 && a.skip) {
+    return launch_slots<kMaxTop>(slots, boxes, scores, valid, cls,
+                                 out_scores, keep, rank, rounds, B, a, s);
+  }
+  return launch_slots<1>(slots, boxes, scores, valid, cls, out_scores, keep,
+                         rank, rounds, B, a, s);
+}
 
 // Returns cudaGetLastError() after the launch (0 = launched). `valid`
 // may be null (all valid); `cls` may be null (class-agnostic).
@@ -218,22 +433,9 @@ int rrnet_soft_nms(const float* boxes, const float* scores,
                    float* out_scores, unsigned char* keep, int* rank, int B,
                    int K, int steps, int method, float sigma, float iou_thr,
                    float score_thr, void* stream) {
-  if (B < 1 || K < 1 || K > kMaxSlots * kThreads) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static_assert(kMaxSlots == 8, "one case below per slot count");
-  switch ((K + kThreads - 1) / kThreads) {
-#define RRNET_CASE(n)                                                       \
-  case n:                                                                   \
-    launch<n>(boxes, scores, valid, cls, out_scores, keep, rank, B, K,      \
-              steps, method, sigma, iou_thr, score_thr, s);                 \
-    break;
-    RRNET_CASE(1) RRNET_CASE(2) RRNET_CASE(3) RRNET_CASE(4)
-    RRNET_CASE(5) RRNET_CASE(6) RRNET_CASE(7) RRNET_CASE(8)
-#undef RRNET_CASE
-  }
-  return (int)cudaGetLastError();
+  return rrnet_soft_nms_ex(boxes, scores, valid, cls, out_scores, keep, rank,
+                           B, K, steps, method, sigma, iou_thr, score_thr, 0,
+                           0, nullptr, stream);
 }
 
 }  // extern "C"
