@@ -12,10 +12,11 @@ Phases (any failure exits non-zero before the result line):
      lines;
   3. kernels: each kernel against its plain PyTorch version on the card
      at its path's shapes, plus edge cases, and timed against its bound;
-     the serial soft-NMS through the wrapper and through both of its
-     designs (one pick a step, multi-pick rounds), timed class-agnostic at
-     B=4 and B=1 and per class at B=4 with its selections and rounds per
-     image; the class-parallel soft-NMS also against the serial kernel,
+     the serial soft-NMS timed class-agnostic at B=4 and B=1 and per
+     class at B=4 with its selections per image (one pick, one barrier a
+     step), and per class and class-agnostic at B=4 built with at most 8,
+     16 and 24 warps a block; the class-parallel soft-NMS also against the
+     serial kernel,
      with the busiest class's chain length per image beside its time; hard
      NMS against the plain fixpoint; the DCN kernels against both bound
      routes (f32 on the CUDA cores, 3xTF32 on the tensor cores), the
@@ -33,8 +34,8 @@ Phases (any failure exits non-zero before the result line):
      topk 1500, 512 ROIs, bf16, seeded random weights) answers single
      requests and one batch inside the 768x1408 bucket; then the same
      model and weights with per-class soft-NMS (the class-parallel
-     kernel), then with class-agnostic soft-NMS (the serial kernel) for
-     four requests. For each setting the launch counts of its run are read
+     kernel), then with class-agnostic soft-NMS (the serial kernel). For
+     each setting the launch counts of its run are read
      back, one request's ROI selection is redone with the plain version,
      and `select_rois` runs once under `torch.cuda.set_sync_debug_mode(
      "error")`; the serial kernel is timed on that request's candidates;
@@ -77,11 +78,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12       # tensor cores, TF32 inputs, f32 accumulate
-# f32 operations per candidate slot (active, unselected) and step of
-# soft-NMS: the argmax compare, IoU (min/max/sub/add on both axes, clamps, inter, union,
-# divide, overlap tests), the gaussian weight (mul, div, exp), the decay
-# multiply and the threshold compare.
-SOFT_NMS_OPS_PER_SLOT_STEP = 22
+# f32 operations of a soft-NMS step. Per candidate slot (active,
+# unselected): the argmax compare, iw and ih (min, max, sub, add each) and
+# the two overlap tests. Per candidate slot that overlaps the pick (the
+# others keep their score: weight 1): the two clamps, inter, the union
+# (add, sub, clamp), the divide, the gaussian weight (mul, div, exp), the
+# decay multiply and the threshold compare.
+SOFT_NMS_OPS_PER_OPEN_SLOT = 11
+SOFT_NMS_OPS_PER_OVERLAP = 12
 # f32 operations per box pair of hard NMS, counted as for soft-NMS: IoU
 # (min/max/sub/add on both axes, clamps, inter, union, clamp, divide),
 # the class compare and select, and the threshold compare.
@@ -148,58 +152,14 @@ def detections_like(rng, b, k, n_cls, frame_hw=(192, 352)):
     return boxes, scores, cls
 
 
-def soft_nms_variant(torch, max_warps=0, top=0):
-    """This checkout's B.1 with the block's largest number of warps and
-    the candidates a round offers set by the caller (`rrnet_soft_nms_ex`;
-    0 keeps the kernel's default; top 1 = one pick a step, 4 = multi-pick
-    rounds), taking the arguments of `soft_nms` and returning (new_scores,
-    keep, rank, rounds a image). It counts no launch."""
+def soft_nms_library(torch, lib, label):
+    """The serial soft-NMS B.1 of the built library `lib` (its C entry
+    `rrnet_soft_nms`), taking the arguments of `soft_nms` and doing the
+    same work around the launch as the wrapper, so that two builds are
+    timed on equal terms. It counts no launch."""
     import ctypes
     from rrnet_torch.ops.nms import _METHODS
-    from rrnet_torch.utils import native
-    fn = native.load("soft_nms").rrnet_soft_nms_ex
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-
-    def run(boxes, scores, valid, cls, *, sigma=0.5, iou_threshold=0.3,
-            score_threshold=0.001, method="gaussian", max_out=None):
-        bsz, k = scores.shape
-        steps = k if max_out is None else min(max_out, k)
-        dev = boxes.device
-        out = (torch.empty((bsz, k), dtype=torch.float32, device=dev),
-               torch.empty((bsz, k), dtype=torch.bool, device=dev),
-               torch.empty((bsz, k), dtype=torch.int32, device=dev),
-               torch.empty((bsz,), dtype=torch.int32, device=dev))
-        err = fn(boxes.data_ptr(), scores.data_ptr(),
-                 None if valid is None else valid.data_ptr(),
-                 None if cls is None else cls.data_ptr(),
-                 *(o.data_ptr() for o in out[:3]), bsz, k, steps,
-                 _METHODS[method], sigma, iou_threshold, score_threshold,
-                 max_warps, top, out[3].data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"soft_nms (max_warps {max_warps}, top {top})"
-                               f" launch failed: CUDA error {err}")
-        return out
-
-    return run
-
-
-def before_soft_nms(torch, src):
-    """The serial soft-NMS B.1 built from another version of
-    `soft_nms.cu` in `src` (e.g. the parent commit's) into src/build,
-    taking the arguments of `soft_nms` and doing the same work around the
-    launch (the C entry `rrnet_soft_nms` is the same), so that the two
-    versions are timed on equal terms. It counts no launch."""
-    import ctypes
-    from pathlib import Path
-    from rrnet_torch.ops.nms import _METHODS
-    from rrnet_torch.utils import native
-    src = Path(src)
-    lib = native.build_all(("soft_nms",), src, src / "build")
-    fn = ctypes.CDLL(str(lib["soft_nms"])).rrnet_soft_nms
+    fn = ctypes.CDLL(str(lib)).rrnet_soft_nms
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -219,10 +179,46 @@ def before_soft_nms(torch, src):
                  _METHODS[method], sigma, iou_threshold, score_threshold,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"{src}: soft_nms launch failed: {err}")
+            raise RuntimeError(f"soft_nms ({label}) launch failed: CUDA "
+                               f"error {err}")
         return out
 
     return run
+
+
+def before_soft_nms(torch, src):
+    """B.1 built from another version of `soft_nms.cu` in `src` (e.g. the
+    parent commit's) into src/build (`soft_nms_library`)."""
+    from pathlib import Path
+    from rrnet_torch.utils import native
+    src = Path(src)
+    lib = native.build_all(("soft_nms",), src, src / "build")["soft_nms"]
+    return soft_nms_library(torch, lib, str(src))
+
+
+def soft_nms_caps(torch, caps=(8, 16, 24)):
+    """This checkout's B.1 built with at most `w` warps a block for each
+    `w` of `caps` (`-DRRNET_SOFT_NMS_MAX_WARPS=w`, into build/
+    soft_nms_warps<w>, the builds started together), for the timing that
+    chose the kernel's cap. Returns {w: soft_nms_library}, and prints each
+    build's register and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+    from rrnet_torch.utils import native
+
+    def build(w):
+        out = native.BUILD_DIR.parent / f"soft_nms_warps{w}"
+        lib = native.build_all(("soft_nms",), native.CSRC, out,
+                               (f"-DRRNET_SOFT_NMS_MAX_WARPS={w}",))
+        for line in (out / "soft_nms.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  soft_nms at most {w} warps: {line.strip()}",
+                      flush=True)
+        return lib["soft_nms"]
+
+    with ThreadPoolExecutor(len(caps)) as ex:
+        libs = list(ex.map(build, caps))
+    return {w: soft_nms_library(torch, lib, f"at most {w} warps")
+            for w, lib in zip(caps, libs)}
 
 
 def soft_nms_cases(rng):
@@ -262,94 +258,89 @@ def soft_nms_cases(rng):
         ("zero and negative scores, class-agnostic", boxes[:, :600], signed,
          None, None, g),
         ("degenerate boxes", degen, scores[:, :600], None, None, g),
-        ("sigma -0.5 (weights above 1: no skip, one pick a round)",
+        ("sigma -0.5 (weights above 1: no skip)",
          boxes[:, :600], scores[:, :600], None, cls[:, :600],
          dict(g, sigma=-0.5)),
         ("linear", boxes, scores, None, None, dict(g, method="linear")),
         ("hard, threshold -0.1 (no skip)", boxes[:, :600], scores[:, :600],
          None, cls[:, :600], dict(g, method="hard", iou_threshold=-0.1)),
-        ("max_out 37 (ends mid-round), per-class", boxes, scores, None, cls,
+        ("max_out 37, per-class", boxes, scores, None, cls,
          dict(g, max_out=37)),
-        ("max_out 3 (ends mid-round), class-agnostic", boxes, scores, None,
-         None, dict(g, max_out=3)),
+        ("max_out 3, class-agnostic", boxes, scores, None, None,
+         dict(g, max_out=3)),
     ]
 
 
 def check_soft_nms(torch, sn, rng):
     """B.1 against its plain version on the card, every case through the
-    wrapper and through both designs of the kernel (one pick a step,
-    multi-pick rounds): keep and rank equal, kept scores within rtol 1e-5,
-    and the two designs bitwise equal to each other in every output.
-    Returns (max |kept score diff| of the main case, the cases)."""
+    wrapper: keep and rank equal, kept scores within rtol 1e-5. Returns
+    (max |kept score diff| of the main case, the cases)."""
     dev = torch.device("cuda")
     t = (lambda a: None if a is None else
          torch.from_numpy(np.ascontiguousarray(a)).to(dev))
     base = dict(iou_threshold=0.7, score_threshold=0.1)
-    designs = {"one pick a step": soft_nms_variant(torch, top=1),
-               "multi-pick rounds": soft_nms_variant(torch, top=4)}
     cases = soft_nms_cases(rng)
     main_err = None
     for name, b, s, v, c, settings in cases:
         args = (t(b), t(s), t(v), t(c))
         kw = dict(base, **settings)
-        got = {"wrapper": sn.soft_nms(*args, **kw)}
-        for d, run in designs.items():
-            got[d] = run(*args, **kw)
+        got = sn.soft_nms(*args, **kw)
         torch.cuda.synchronize()
         ref = sn.soft_nms_reference(*args, **kw)
         k = ref[1]
-        for d, out in got.items():
-            if not (torch.equal(out[1], ref[1])
-                    and torch.equal(out[2], ref[2])):
-                raise AssertionError(f"soft_nms kernel ({d}): keep/rank "
-                                     f"differ ({name})")
-            torch.testing.assert_close(out[0][k], ref[0][k], rtol=1e-5,
-                                       atol=0)
-        one, multi = got["one pick a step"], got["multi-pick rounds"]
-        if not all(torch.equal(x.view(torch.int32) if x.is_floating_point()
-                               else x, y.view(torch.int32)
-                               if y.is_floating_point() else y)
-                   for x, y in zip(one[:3], multi[:3])):
-            raise AssertionError(f"soft_nms: multi-pick rounds differ from "
-                                 f"one pick a step ({name})")
-        err = float((got["wrapper"][0][k] - ref[0][k]).abs().max()) \
-            if k.any() else 0.0
-        sel = k.sum(1).tolist()
+        if not (torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])):
+            raise AssertionError(f"soft_nms kernel: keep/rank differ ({name})")
+        torch.testing.assert_close(got[0][k], ref[0][k], rtol=1e-5, atol=0)
+        err = float((got[0][k] - ref[0][k]).abs().max()) if k.any() else 0.0
         print(f"  soft_nms {name}: keep {int(k.sum())} equal, rank equal, "
-              f"max |score diff| {err:.3g}; selections {sel}, rounds one "
-              f"pick a step {one[3].tolist()}, multi-pick "
-              f"{multi[3].tolist()}; the two designs bitwise equal",
+              f"max |score diff| {err:.3g}; selections {k.sum(1).tolist()}",
               flush=True)
         if main_err is None:
             main_err = err
     return main_err, cases
 
 
+def soft_nms_bound(sn, args, kw):
+    """B.1's bound on these inputs: the larger of its bytes (each input
+    read once, each output written once) over the HBM rate and the f32
+    operations this data needs (each step's open slots, and the decay of
+    those that overlap the pick) over the f32 rate. Returns (bound ms,
+    "operations" or "bytes", {open, overlapping slot-steps per image,
+    ops, bytes})."""
+    work = sn.soft_nms_reference(*args, return_work=True, **kw)[3]
+    bsz, kk = args[1].shape
+    ops = (float(work[:, 0].sum()) * SOFT_NMS_OPS_PER_OPEN_SLOT
+           + float(work[:, 1].sum()) * SOFT_NMS_OPS_PER_OVERLAP)
+    nbytes = bsz * kk * ((16 + 4 + 4) + (4 + 1 + 4))
+    bound_ops = ops / F32_FLOPS_PER_S * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(bound_ops, bound_bytes),
+            "operations" if bound_ops >= bound_bytes else "bytes",
+            {"open_slot_steps": work[:, 0].tolist(),
+             "overlap_slot_steps": work[:, 1].tolist(), "ops": ops,
+             "bytes": nbytes})
+
+
 def time_soft_nms(torch, sn, label, args, kw, card, before=None,
-                  sweep=False):
-    """B.1 on one input (tensors on the card): the wrapper (one pick a
-    step, the default design) a call over 50 back-to-back calls and its
-    device time (torch.profiler), the parent's build (`before`) in turns
-    (before, after, after, before), the multi-pick design; each design's
-    rounds per image, with `sweep` the default at 8, 16 and 24 warps at
-    most; the selections (chain length) per image, the plain version's
-    time and the bound. Returns the numbers as a dict."""
+                  caps=None):
+    """B.1 on one input (tensors on the card): the wrapper a call over 50
+    back-to-back calls and its device time (torch.profiler), the parent's
+    build (`before`) in turns (before, after, after, before), and with
+    `caps` ({warps: build}, `soft_nms_caps`) each cap's build; the
+    selections (chain length; one pick and one barrier a step) per image,
+    the plain version's time and the bound. Returns the numbers as a
+    dict."""
     out = sn.soft_nms(*args, **kw)
     sel = out[1].sum(1).tolist()
-    multi = soft_nms_variant(torch, top=4)
-    rounds = {"one pick a step": soft_nms_variant(torch, top=1)(
-        *args, **kw)[3].tolist(), "multi-pick": multi(*args, **kw)[3].tolist()}
     if before is not None:
         old = before(*args, **kw)
         if not all(torch.equal(a, b) for a, b in zip(old, out)):
             raise AssertionError(f"soft_nms {label}: the --before build "
                                  "differs from this one")
-    versions = {"after": lambda: sn.soft_nms(*args, **kw),
-                "multi-pick": lambda: multi(*args, **kw)}
+    versions = {"after": lambda: sn.soft_nms(*args, **kw)}
     if before is not None:
         versions["before"] = lambda: before(*args, **kw)
     order = ["before", "after", "after", "before"] if before else ["after"]
-    order += ["multi-pick"] * 2
     times = {v: [] for v in versions}
     for v in order:
         times[v].append(cuda_ms(versions[v], reps=50))
@@ -358,30 +349,18 @@ def time_soft_nms(torch, sn, label, args, kw, card, before=None,
               for v, f in versions.items()}
     plain_ms = cuda_ms(lambda: sn.soft_nms_reference(*args, **kw), reps=3,
                        warm=1)
-    work = sn.soft_nms_reference(*args, return_work=True, **kw)[3]
-    bsz, kk = args[1].shape
-    ops = float(work.sum()) * SOFT_NMS_OPS_PER_SLOT_STEP
-    nbytes = bsz * kk * ((16 + 4 + 4) + (4 + 1 + 4))
-    bound_ops = ops / F32_FLOPS_PER_S * 1e3
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound = max(bound_ops, bound_bytes)
+    bound, bound_by, work = soft_nms_bound(sn, args, kw)
     longest = max(max(sel), 1)
     print(f"  soft_nms timing, {label}, on {card}: wrapper {ms['after']:.4f}"
           f" ms a call (device {device['after']:.4f} ms, "
           f"{device['after'] / longest * 1e3:.3f} us a step of the longest "
           f"chain), plain {plain_ms:.2f} ms, bound {bound:.6f} ms "
-          f"({'operations' if bound_ops >= bound_bytes else 'bytes'}; open "
-          f"slot-steps per image {work.tolist()}, {ops:.0f} ops, {nbytes} "
-          f"bytes); selections per image {sel}, rounds (one pick a step) "
-          f"{rounds['one pick a step']}; no PyTorch call computes soft-NMS, "
-          "so library_ms is null", flush=True)
-    r = max(max(rounds["multi-pick"]), 1)
-    print(f"  soft_nms multi-pick rounds, {label}: {ms['multi-pick']:.4f} ms "
-          f"a call, device {device['multi-pick']:.4f} ms; rounds per image "
-          f"{rounds['multi-pick']} (selections {sel}): "
-          f"{device['multi-pick'] / r * 1e3:.3f} us a round, "
-          f"{device['multi-pick'] / longest * 1e3:.3f} us a step",
-          flush=True)
+          f"({bound_by}; open slot-steps per image "
+          f"{work['open_slot_steps']}, of them overlapping the pick "
+          f"{work['overlap_slot_steps']}, {work['ops']:.0f} ops, "
+          f"{work['bytes']} bytes); selections per image {sel} (= barrier "
+          "rounds: one pick a step); no PyTorch call computes soft-NMS, so "
+          "library_ms is null", flush=True)
     if before is not None:
         print(f"  soft_nms before/after, {label}, on {card}: "
               f"{ms['before']:.4f} -> {ms['after']:.4f} ms a call "
@@ -393,46 +372,47 @@ def time_soft_nms(torch, sn, label, args, kw, card, before=None,
               f"longest chain ({longest}) (each the mean of two timings, "
               "before, after, after, before)", flush=True)
     result = {"ms": ms["after"], "device_ms": device["after"],
-              "plain_ms": plain_ms, "bound_ms": bound,
-              "bound_by": "operations" if bound_ops >= bound_bytes
-              else "bytes", "selections": sel,
-              "rounds": rounds["one pick a step"],
-              "multi_pick_rounds": rounds["multi-pick"],
-              "multi_pick_ms": ms["multi-pick"],
-              "multi_pick_device_ms": device["multi-pick"]}
+              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+              "selections": sel, **work}
     if before is not None:
         result.update(before_ms=ms["before"],
                       before_device_ms=device["before"])
-    if sweep:
-        caps = {}
-        for w in (8, 16, 24):
-            run = soft_nms_variant(torch, max_warps=w, top=1)
-            caps[w] = cuda_ms(lambda: run(*args, **kw), reps=50)
-        print(f"  soft_nms one pick a step, {label}, at most 8 / 16 / 24 "
-              f"warps: " + " / ".join(f"{caps[w]:.4f}" for w in caps)
+    if caps:
+        by_cap = {}
+        for w, run in caps.items():
+            got = run(*args, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, out)):
+                raise AssertionError(f"soft_nms {label}: the build with at "
+                                     f"most {w} warps differs")
+            by_cap[w] = cuda_ms(lambda: run(*args, **kw), reps=50)
+        print(f"  soft_nms {label}, built with at most "
+              + " / ".join(str(w) for w in by_cap) + " warps: "
+              + " / ".join(f"{x:.4f}" for x in by_cap.values())
               + " ms a call", flush=True)
-        result["ms_by_max_warps"] = caps
+        result["ms_by_max_warps"] = by_cap
     return result
 
 
 def soft_nms_timings(torch, sn, cases, card, before=None):
     """B.1 timed on the detections-like inputs: class-agnostic at B=4 and
     B=1 (the path the model takes), per class at B=4 (the row of earlier
-    PRs). Returns the kernel's line without its launches."""
+    PRs); the cap's builds at B=4. Returns the kernel's line without its
+    launches."""
     dev = torch.device("cuda")
     t = (lambda a: None if a is None else
          torch.from_numpy(np.ascontiguousarray(a)).to(dev))
     kw = dict(sigma=0.5, iou_threshold=0.7, score_threshold=0.1,
               method="gaussian", max_out=512)
     named = {c[0]: c for c in cases}
+    caps = soft_nms_caps(torch)
     rows = {}
     for key, case in (("per_class_b4", "main B=4 K=1500 per-class"),
                       ("class_agnostic_b4", "class-agnostic B=4 K=1500"),
                       ("class_agnostic_b1", "class-agnostic B=1 K=1500")):
         _, b, s, v, c, _ = named[case]
-        rows[key] = time_soft_nms(torch, sn, case, (t(b), t(s), t(v), t(c)),
-                                  kw, card, before, sweep=key != "class_"
-                                  "agnostic_b1")
+        rows[key] = time_soft_nms(
+            torch, sn, case, (t(b), t(s), t(v), t(c)), kw, card, before,
+            caps if key != "class_agnostic_b1" else None)
     main = rows["per_class_b4"]
     return {"name": "soft_nms", "route": "cuda",
             "source": "rrnet_torch/csrc/soft_nms.cu",
@@ -586,6 +566,7 @@ def check_soft_nms_classes(torch, sn, rng, card, before=None):
     plain_ms = cuda_ms(lambda: sn.soft_nms_classes_reference(
         *args, num_classes=10, **ckw), reps=3, warm=1)
     # the work these inputs need: each class's steps touch its open slots
+    # and decay those that overlap its pick
     work = sn.soft_nms_classes_reference(*args, num_classes=10,
                                          return_work=True, **ckw)[3]
     # chain: each class runs to exhaustion, one selection a step
@@ -595,7 +576,8 @@ def check_soft_nms_classes(torch, sn, rng, card, before=None):
     chains = [int(torch.bincount(cls[i][sel[i]], minlength=10).max())
               for i in range(cls.shape[0])]
     bsz, kk = main[1].shape
-    ops = float(work.sum()) * SOFT_NMS_OPS_PER_SLOT_STEP
+    ops = (float(work[:, 0].sum()) * SOFT_NMS_OPS_PER_OPEN_SLOT
+           + float(work[:, 1].sum()) * SOFT_NMS_OPS_PER_OVERLAP)
     nbytes = bsz * kk * ((16 + 4 + 4) + (4 + 1 + 4))
     bound_ops = ops / F32_FLOPS_PER_S * 1e3
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -606,7 +588,8 @@ def check_soft_nms_classes(torch, sn, rng, card, before=None):
           f"{parts}), serial kernel soft_nms on the same inputs "
           f"{serial_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
           f"{max(bound_ops, bound_bytes):.6f} ms (open slot-steps per image "
-          f"{work.tolist()}, {ops:.0f} ops, {nbytes} bytes); busiest "
+          f"{work[:, 0].tolist()}, of them overlapping the pick "
+          f"{work[:, 1].tolist()}, {ops:.0f} ops, {nbytes} bytes); busiest "
           f"class's chain per image {chains}: device "
           f"{device['after'] / max(chains) * 1e3:.3f} us a step of the "
           "longest; no PyTorch call computes soft-NMS, so library_ms is "
@@ -1487,7 +1470,7 @@ def run_main_path(torch, sn, hn, card, before_soft=None):
 
     # 3. class-agnostic soft-NMS: the serial kernel
     m.nms_per_class = False
-    times, batch_ms, counts, n_warm = serve(4, 1, False, False)
+    times, batch_ms, counts, n_warm = serve(len(images), 2, True, False)
     want = {"hard_nms": 0, "soft_nms": len(forwards), "soft_nms_classes": 0,
             "dcn": 0}
     if counts != want:

@@ -19,14 +19,16 @@
 // compare exactly.
 //
 // What bounds it on the card: neither bytes nor arithmetic. An image's
-// whole state is ~42 KB (K=1500) and each step does ~22 operations per
-// open slot; what costs is the chain of up to max_out=512 DEPENDENT
-// steps (310-444 selections an image at K=1500), each a block-wide argmax
-// and a decay, issued by every warp of the block. The design shortens
-// each step:
+// whole state is ~42 KB (K=1500); each step tests every open slot for
+// overlap with the pick (~11 operations) and decays only the slots that
+// overlap (~12 more). What costs is the chain of up to max_out=512
+// DEPENDENT steps (310-444 selections an image at K=1500), each a
+// block-wide argmax and a decay, issued by every warp of the block. The
+// design shortens each step:
 //  * the block is sized to K: one warp per 64 boxes (two slots a lane)
-//    up to kDefaultWarps = 24, more slots a lane beyond (K <= 4096). At
-//    K=1500 a cap of 24 warps beat 16 and 8 (chip_smoke.py's sweep);
+//    up to kMaxWarps = 24, more slots a lane beyond (K <= 4096). At
+//    K=1500 a cap of 24 warps beat 16 and 8 (chip_smoke.py builds the
+//    kernel with RRNET_SOFT_NMS_MAX_WARPS set to each and times them);
 //  * each thread keeps its slots' boxes, areas, classes and scores in
 //    registers (the loops over them unroll) and their open and selected
 //    flags as bit masks; the boxes are also in shared memory, where a
@@ -47,27 +49,10 @@
 //    bit-exact whenever a zero overlap weighs exactly 1 (gaussian with
 //    sigma > 0, linear, hard with a threshold >= 0); otherwise (`skip` =
 //    0) every open slot takes the full arithmetic.
-// A second design of the same loop, multi-pick rounds (`top` = 4 through
-// rrnet_soft_nms_ex; the default is one pick a step), takes several steps
-// a round where the serial order provably allows it. Take the open
-// candidates in key order (score descending, lower index first), c1, c2,
-// ... If c1..cp pairwise do not overlap (as above) and c2..cp score above
-// 0, the serial loop picks exactly c1..cp in its next p steps, provided
-// every weight lies in [0, 1] and a zero overlap weighs exactly 1 (the
-// skip condition; an overlapping pair has ov in [0, 1]): after c1, c2 is
-// multiplied by exactly 1 and stays active, and every other open score
-// only moves toward 0, so it stays below c2 (> 0); a box tied with c2 at
-// a lower index was ahead of c2 already. A round gives the picks ranks
-// step..step+p-1 and applies their decays in that order, each slot
-// dropping out at the first that deactivates it, as the serial loop does.
-// Each warp offers its best `top` open slots (the global best `top` are
-// among them), every warp merges the offers after the round's one
-// barrier and tests the pairs; p is capped by the steps left, and is 1
-// where the condition fails. It is bit-equal to the default and cuts the
-// rounds 3.6-3.9x at K=1500, but on an H100 a round costs ~3.9 steps: the
-// barrier it shares is a small part of a step, and the warps' reduction
-// passes and every open slot's test are paid per pick. So it is not the
-// default; chip_smoke.py measures it beside the default in every run.
+// Exact multi-pick rounds (several non-overlapping picks a barrier) were
+// measured bit-equal but no faster on an H100 (a round cost ~3.9 steps:
+// the warps' reductions and every open slot's test are paid per pick),
+// and were not kept; see PERF.md.
 // The TPU kernel's (8, K/8) tiling, its K-to-1024 padding and its
 // fixed-trip chunking (Mosaic could not compile a while loop) are TPU
 // layout and are not carried over.
@@ -76,17 +61,21 @@
 #include <limits.h>
 #include <math.h>
 
+#ifndef RRNET_SOFT_NMS_MAX_WARPS
+#define RRNET_SOFT_NMS_MAX_WARPS 24   // chosen by measurement at K=1500
+#endif
+
 namespace {
 
-constexpr int kMaxWarps = 24;              // the block's largest size
+constexpr int kMaxWarps = RRNET_SOFT_NMS_MAX_WARPS;  // the block's largest
 constexpr int kMaxThreads = kMaxWarps * 32;
-constexpr int kDefaultWarps = 24;          // chosen by measurement
-constexpr int kDefaultTop = 1;             // one pick a step
-constexpr int kMaxTop = 4;                 // multi-pick rounds
+constexpr int kMaxSlots = 6;               // K=4096 on 24 warps
 constexpr int kBoxesPerWarp = 64;          // one more warp per 64 boxes
 constexpr int kMaxK = 4096;
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+
+static_assert(kMaxWarps >= 1 && kMaxWarps <= 32, "1..32 warps a block");
 
 // An unsigned key that orders as the f32 score does (-0 read as +0).
 __device__ __forceinline__ unsigned score_key(float v) {
@@ -104,49 +93,13 @@ struct Params {
   int skip, nw;
 };
 
-// Do two boxes overlap in the decay's sense (iw > 0 && ih > 0)?
-__device__ __forceinline__ bool overlaps(const float4& a, const float4& b) {
-  const float iw = fminf(a.z, b.z) - fmaxf(a.x, b.x) + 1.0f;
-  const float ih = fminf(a.w, b.w) - fmaxf(a.y, b.y) + 1.0f;
-  return iw > 0.0f && ih > 0.0f;
-}
-
-// Slot (x1, y1, x2, y2, area, c) with score `cur`, open, takes the decay
-// of pick `p` (area `parea`, class `pc`); clears `open` where it drops.
-__device__ __forceinline__ void decay(const float4& p, float parea, int pc,
-                                      float x1, float y1, float x2, float y2,
-                                      float area, int c, float& cur,
-                                      bool& open, const Params& a,
-                                      bool gated) {
-  const float iw = fminf(p.z, x2) - fmaxf(p.x, x1) + 1.0f;
-  const float ih = fminf(p.w, y2) - fmaxf(p.y, y1) + 1.0f;
-  bool pos = iw > 0.0f && ih > 0.0f;
-  if (gated && c != pc) pos = false;
-  if (!pos && a.skip) return;       // weight exactly 1, stays active
-  const float inter = fmaxf(iw, 0.0f) * fmaxf(ih, 0.0f);
-  float ov = inter / fmaxf(parea + area - inter, 1e-12f);
-  if (!pos) ov = 0.0f;
-  float w;
-  if (a.method == 2) {
-    w = expf(-(ov * ov) / a.sigma);
-  } else if (a.method == 1) {
-    w = ov > a.iou_threshold ? 1.0f - ov : 1.0f;
-  } else {
-    w = ov > a.iou_threshold ? 0.0f : 1.0f;
-  }
-  cur = cur * w;
-  if (pos && cur < a.score_threshold) open = false;
-}
-
 __device__ __forceinline__ float box_area(const float4& b) {
   return (b.z - b.x + 1.0f) * (b.w - b.y + 1.0f);
 }
 
 // One image on the block's nw warps. Thread (warp, lane) owns the indices
-// pos + j * nt, pos = lane * nw + warp, j < SLOTS. TOP = 1 runs one pick
-// a step; TOP > 1 runs multi-pick rounds (the caller checked the skip
-// condition).
-template <int SLOTS, int TOP>
+// pos + j * nt, pos = lane * nw + warp, j < SLOTS.
+template <int SLOTS>
 __global__ void __launch_bounds__(kMaxThreads)
 soft_nms_kernel(const float* __restrict__ boxes,          // (B, K, 4)
                 const float* __restrict__ scores,         // (B, K)
@@ -155,13 +108,12 @@ soft_nms_kernel(const float* __restrict__ boxes,          // (B, K, 4)
                 float* __restrict__ out_scores,           // (B, K)
                 unsigned char* __restrict__ keep,         // (B, K)
                 int* __restrict__ rank,                   // (B, K)
-                int* __restrict__ rounds,                 // (B,) or null
                 Params a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float4* sbox = reinterpret_cast<float4*>(smem);         // K boxes
   int* scls = reinterpret_cast<int*>(sbox + a.K);         // K, when gated
-  __shared__ unsigned part_key[2][kMaxWarps * TOP];
-  __shared__ unsigned part_idx[2][kMaxWarps * TOP];
+  __shared__ unsigned part_key[2][kMaxWarps];
+  __shared__ unsigned part_idx[2][kMaxWarps];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -205,136 +157,74 @@ soft_nms_kernel(const float* __restrict__ boxes,          // (B, K, 4)
 
   const unsigned neg_key = score_key(kNeg);  // only scores above count
   int parity = 0;
-  int step = 0;
-  int n_rounds = 0;
-  while (step < a.steps) {
-    // the warp's best TOP open slots, best first (TOP passes)
-    unsigned taken = 0u;
-    unsigned best = neg_key, pick = UINT_MAX;
+  for (int step = 0; step < a.steps; ++step) {
+    // the warp's best open slot: max key, then the lowest index
+    unsigned key = neg_key, idx = UINT_MAX;
 #pragma unroll
-    for (int t = 0; t < TOP; ++t) {
-      unsigned key = neg_key, idx = UINT_MAX;
-#pragma unroll
-      for (int j = 0; j < SLOTS; ++j) {
-        const unsigned k = score_key(cur[j]);
-        // indices rise with j, so a strict > keeps the first of equals
-        if ((((open & ~taken) >> j) & 1u) && k > key) {
-          key = k;
-          idx = pos + j * nt;
-        }
+    for (int j = 0; j < SLOTS; ++j) {
+      const unsigned k = score_key(cur[j]);
+      // indices rise with j, so a strict > keeps the first of equals
+      if (((open >> j) & 1u) && k > key) {
+        key = k;
+        idx = pos + j * nt;
       }
+    }
+    unsigned best = __reduce_max_sync(kFull, key);
+    unsigned pick = __reduce_min_sync(kFull, key == best ? idx : UINT_MAX);
+
+    // the block's best over the warps' partials (one barrier a step)
+    if (a.nw > 1) {
+      if (lane == 0) {
+        part_key[parity][warp] = best;
+        part_idx[parity][warp] = pick;
+      }
+      named_barrier(1, nt);
+      const bool in = lane < a.nw;
+      key = in ? part_key[parity][lane] : neg_key;
+      idx = in ? part_idx[parity][lane] : UINT_MAX;
       best = __reduce_max_sync(kFull, key);
       pick = __reduce_min_sync(kFull, key == best ? idx : UINT_MAX);
-      if (TOP > 1) {
-#pragma unroll
-        for (int j = 0; j < SLOTS; ++j) {
-          if (pick == (unsigned)(pos + j * nt)) taken |= 1u << j;
-        }
-      }
-      if (lane == 0 && (TOP > 1 || a.nw > 1)) {
-        part_key[parity][warp * TOP + t] = best;
-        part_idx[parity][warp * TOP + t] = pick;
-      }
-    }
-
-    // every warp merges the offers into the block's best TOP
-    unsigned gk[TOP], gi[TOP];
-    if (TOP == 1 && a.nw == 1) {
-      gk[0] = best;
-      gi[0] = pick;
-    } else {
-      if (a.nw > 1) {
-        named_barrier(1, nt);
-      } else {
-        __syncwarp();
-      }
-      constexpr int R = (kMaxWarps * TOP + 31) / 32;
-      unsigned mk[R], mi[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int e = lane + 32 * r;
-        const bool in = e < a.nw * TOP;
-        mk[r] = in ? part_key[parity][e] : neg_key;
-        mi[r] = in ? part_idx[parity][e] : UINT_MAX;
-      }
-#pragma unroll
-      for (int t = 0; t < TOP; ++t) {
-        unsigned key = neg_key, idx = UINT_MAX;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (mk[r] > key || (mk[r] == key && mi[r] < idx)) {
-            key = mk[r];
-            idx = mi[r];
-          }
-        }
-        gk[t] = __reduce_max_sync(kFull, key);
-        gi[t] = __reduce_min_sync(kFull, key == gk[t] ? idx : UINT_MAX);
-        if (TOP > 1) {
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            if (mi[r] == gi[t]) {
-              mk[r] = neg_key;
-              mi[r] = UINT_MAX;
-            }
-          }
-        }
-      }
       parity ^= 1;
     }
-    if (gk[0] == neg_key) break;      // nothing open above -1e30
-    ++n_rounds;
+    if (best == neg_key) break;      // nothing open above -1e30
 
-    // the round's picks: the longest prefix that the serial loop takes
-    // in this order (TOP = 1: the best alone)
-    float4 pb[TOP];
-    int pc[TOP];
-    int p = 1;
 #pragma unroll
-    for (int t = 0; t < TOP; ++t) {
-      const bool real = gk[t] != neg_key;
-      pb[t] = real ? sbox[gi[t]] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      pc[t] = real && gated ? scls[gi[t]] : 0;
-      if (t > 0) {
-        bool ok = p == t && gk[t] > score_key(0.0f) && step + t < a.steps;
-#pragma unroll
-        for (int s = 0; s < t; ++s) {
-          ok = ok && !(overlaps(pb[s], pb[t]) && (!gated || pc[s] == pc[t]));
-        }
-        p += ok;
+    for (int j = 0; j < SLOTS; ++j) {
+      if (pick == (unsigned)(pos + j * nt)) {
+        open &= ~(1u << j);
+        sel |= 1u << j;
+        rank[base + pick] = step;
       }
     }
+
+    // the decay of the pick, on every open slot that overlaps it
+    const float4 p = sbox[pick];
+    const int pc = gated ? scls[pick] : 0;
+    const float parea = box_area(p);
 #pragma unroll
-    for (int t = 0; t < TOP; ++t) {
-      if (t < p) {
-#pragma unroll
-        for (int j = 0; j < SLOTS; ++j) {
-          if (gi[t] == (unsigned)(pos + j * nt)) {
-            open &= ~(1u << j);
-            sel |= 1u << j;
-            rank[base + gi[t]] = step + t;
-          }
-        }
+    for (int j = 0; j < SLOTS; ++j) {
+      if (!((open >> j) & 1u)) continue;
+      const float iw = fminf(p.z, x2[j]) - fmaxf(p.x, x1[j]) + 1.0f;
+      const float ih = fminf(p.w, y2[j]) - fmaxf(p.y, y1[j]) + 1.0f;
+      bool pos_ov = iw > 0.0f && ih > 0.0f;
+      if (gated && c[j] != pc) pos_ov = false;
+      if (!pos_ov && a.skip) continue;   // weight exactly 1, stays open
+      const float inter = fmaxf(iw, 0.0f) * fmaxf(ih, 0.0f);
+      float ov = inter / fmaxf(parea + area[j] - inter, 1e-12f);
+      if (!pos_ov) ov = 0.0f;
+      float w;
+      if (a.method == 2) {
+        w = expf(-(ov * ov) / a.sigma);
+      } else if (a.method == 1) {
+        w = ov > a.iou_threshold ? 1.0f - ov : 1.0f;
+      } else {
+        w = ov > a.iou_threshold ? 0.0f : 1.0f;
       }
+      cur[j] = cur[j] * w;
+      if (pos_ov && cur[j] < a.score_threshold) open &= ~(1u << j);
     }
-    // their decays, in pick order
-#pragma unroll
-    for (int t = 0; t < TOP; ++t) {
-      if (t < p) {
-        const float parea = box_area(pb[t]);
-#pragma unroll
-        for (int j = 0; j < SLOTS; ++j) {
-          if (!((open >> j) & 1u)) continue;
-          bool still = true;
-          decay(pb[t], parea, pc[t], x1[j], y1[j], x2[j], y2[j], area[j],
-                c[j], cur[j], still, a, gated);
-          if (!still) open &= ~(1u << j);
-        }
-      }
-    }
-    step += p;
   }
 
-  if (rounds != nullptr && tid == 0) rounds[blockIdx.x] = n_rounds;
 #pragma unroll
   for (int j = 0; j < SLOTS; ++j) {
     const int i = pos + j * nt;
@@ -345,35 +235,20 @@ soft_nms_kernel(const float* __restrict__ boxes,          // (B, K, 4)
   }
 }
 
-template <int SLOTS, int TOP>
+template <int SLOTS>
 int launch(const float* boxes, const float* scores, const unsigned char* valid,
            const int* cls, float* out_scores, unsigned char* keep, int* rank,
-           int* rounds, int B, const Params& a, cudaStream_t stream) {
+           int B, const Params& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.K * (sizeof(float4) + (cls ? sizeof(int) : 0));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        soft_nms_kernel<SLOTS, TOP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        soft_nms_kernel<SLOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  soft_nms_kernel<SLOTS, TOP><<<B, a.nw * 32, smem, stream>>>(
-      boxes, scores, valid, cls, out_scores, keep, rank, rounds, a);
+  soft_nms_kernel<SLOTS><<<B, a.nw * 32, smem, stream>>>(
+      boxes, scores, valid, cls, out_scores, keep, rank, a);
   return (int)cudaGetLastError();
-}
-
-template <int TOP>
-int launch_slots(int slots, const float* boxes, const float* scores,
-                 const unsigned char* valid, const int* cls,
-                 float* out_scores, unsigned char* keep, int* rank,
-                 int* rounds, int B, const Params& a, cudaStream_t s) {
-#define RRNET_ARGS \
-  boxes, scores, valid, cls, out_scores, keep, rank, rounds, B, a, s
-  if (slots <= 2) return launch<2, TOP>(RRNET_ARGS);
-  if (slots <= 4) return launch<4, TOP>(RRNET_ARGS);
-  if (slots <= 6) return launch<6, TOP>(RRNET_ARGS);
-  if (slots <= 8) return launch<8, TOP>(RRNET_ARGS);
-  return launch<16, TOP>(RRNET_ARGS);
-#undef RRNET_ARGS
 }
 
 }  // namespace
@@ -383,49 +258,6 @@ extern "C" {
 // Largest K one launch takes.
 int rrnet_soft_nms_max_k() { return kMaxK; }
 
-// rrnet_soft_nms with the block's largest number of warps (1..24; 0 for
-// the default) and the candidates a round offers (1 = one pick a step, 4
-// = multi-pick rounds; 0 for the default) chosen by the caller, for
-// measurements; `rounds` (B ints, or null) receives each image's number
-// of rounds (barrier rounds; equal to its selections where a round takes
-// one pick). Where the settings do not meet the multi-pick condition the
-// rounds take one pick whatever `top` says.
-int rrnet_soft_nms_ex(const float* boxes, const float* scores,
-                      const unsigned char* valid, const int* cls,
-                      float* out_scores, unsigned char* keep, int* rank,
-                      int B, int K, int steps, int method, float sigma,
-                      float iou_thr, float score_thr, int max_warps, int top,
-                      int* rounds, void* stream) {
-  if (max_warps == 0) max_warps = kDefaultWarps;
-  if (top == 0) top = kDefaultTop;
-  if (B < 1 || K < 1 || K > kMaxK || max_warps < 1 ||
-      max_warps > kMaxWarps || (top != 1 && top != kMaxTop) ||
-      max_warps * 32 * 16 < K) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Params a;
-  a.K = K;
-  a.steps = steps;
-  a.method = method;
-  a.sigma = sigma;
-  a.iou_threshold = iou_thr;
-  a.score_threshold = score_thr;
-  // a zero overlap gives weight exactly 1 (and no deactivation), and
-  // every weight lies in [0, 1], for these settings: the decay may skip
-  // non-overlapping slots and rounds may take several picks
-  a.skip = method == 2 ? sigma > 0.0f : method == 1 ? 1 : !(0.0f > iou_thr);
-  a.nw = (K + kBoxesPerWarp - 1) / kBoxesPerWarp;
-  if (a.nw > max_warps) a.nw = max_warps;
-  const int slots = (K + a.nw * 32 - 1) / (a.nw * 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (top > 1 && a.skip) {
-    return launch_slots<kMaxTop>(slots, boxes, scores, valid, cls,
-                                 out_scores, keep, rank, rounds, B, a, s);
-  }
-  return launch_slots<1>(slots, boxes, scores, valid, cls, out_scores, keep,
-                         rank, rounds, B, a, s);
-}
-
 // Returns cudaGetLastError() after the launch (0 = launched). `valid`
 // may be null (all valid); `cls` may be null (class-agnostic).
 int rrnet_soft_nms(const float* boxes, const float* scores,
@@ -433,9 +265,32 @@ int rrnet_soft_nms(const float* boxes, const float* scores,
                    float* out_scores, unsigned char* keep, int* rank, int B,
                    int K, int steps, int method, float sigma, float iou_thr,
                    float score_thr, void* stream) {
-  return rrnet_soft_nms_ex(boxes, scores, valid, cls, out_scores, keep, rank,
-                           B, K, steps, method, sigma, iou_thr, score_thr, 0,
-                           0, nullptr, stream);
+  if (B < 1 || K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  Params a;
+  a.K = K;
+  a.steps = steps;
+  a.method = method;
+  a.sigma = sigma;
+  a.iou_threshold = iou_thr;
+  a.score_threshold = score_thr;
+  // a zero overlap gives weight exactly 1 (and no deactivation) for these
+  // settings: the decay may skip slots that do not overlap the pick
+  a.skip = method == 2 ? sigma > 0.0f : method == 1 ? 1 : !(0.0f > iou_thr);
+  a.nw = (K + kBoxesPerWarp - 1) / kBoxesPerWarp;
+  if (a.nw > kMaxWarps) a.nw = kMaxWarps;
+  const int slots = (K + a.nw * 32 - 1) / (a.nw * 32);
+  if (slots > kMaxSlots) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (slots <= 2) {
+    return launch<2>(boxes, scores, valid, cls, out_scores, keep, rank, B, a,
+                     s);
+  }
+  if (slots <= 4) {
+    return launch<4>(boxes, scores, valid, cls, out_scores, keep, rank, B, a,
+                     s);
+  }
+  return launch<6>(boxes, scores, valid, cls, out_scores, keep, rank, B, a,
+                   s);
 }
 
 }  // extern "C"

@@ -79,9 +79,10 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
     boxes (B, K, 4) xyxy f32, scores (B, K) f32, valid (B, K) bool or
     None, class_ids (B, K) int or None. Returns (new_scores f32 with NEG
     for invalid slots, keep bool, rank int32 with K where unranked).
-    With return_work, also a (B,) int64 count of the candidate slots
-    (active, unselected) summed over the steps: the slots each step's
-    argmax and decay must touch."""
+    With return_work, also a (B, 2) int64 count summed over the steps:
+    the candidate slots (active, unselected), which each step's argmax
+    and overlap test touch, and of those the slots that overlap the pick
+    (same class when gated), which take the decay's arithmetic."""
     bsz, k = scores.shape
     dev = scores.device
     method_id = _METHODS[method]
@@ -95,7 +96,7 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
     selected = torch.zeros_like(valid)
     rank = torch.full((bsz, k), k, dtype=torch.int32, device=dev)
     idx = torch.arange(k, device=dev)
-    work = torch.zeros(bsz, dtype=torch.int64, device=dev)
+    work = torch.zeros((bsz, 2), dtype=torch.int64, device=dev)
 
     def pick(v, m):
         return torch.gather(v, 1, m)              # (B, 1)
@@ -103,7 +104,7 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
     for step in range(steps):
         open_ = active & ~selected
         if return_work:
-            work += open_.sum(1)
+            work[:, 0] += open_.sum(1)
         cand = torch.where(open_, cur, torch.full_like(cur, NEG))
         maxval = cand.max(dim=1, keepdim=True).values
         any_left = maxval > NEG                    # (B, 1)
@@ -134,6 +135,8 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
             wgt = torch.where(ov > iou_threshold, 0.0, 1.0)
 
         decay = active & ~selected & any_left
+        if return_work:
+            work[:, 1] += (decay & overlap_pos).sum(1)
         cur = torch.where(decay, cur * wgt, cur)
         active = active & ~(decay & overlap_pos & (cur < score_threshold))
     if return_work:

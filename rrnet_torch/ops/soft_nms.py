@@ -158,8 +158,10 @@ def soft_nms_classes_reference(boxes: torch.Tensor, scores: torch.Tensor,
     None, class_ids (B, K) int (required) with the ids of valid boxes in
     [0, num_classes), or this raises. Returns (new_scores f32 with NEG for
     invalid slots, keep bool, rank int32 with K where not kept); with
-    return_work also a (B,) int64 count of the open slots summed over the
-    steps (each class's argmax and decay touch its open slots only)."""
+    return_work also a (B, 2) int64 count summed over the steps, as the
+    serial version counts it: the open slots (each class's argmax and
+    overlap test touch its open slots only), and of those the slots that
+    overlap their class's pick (they take the decay's arithmetic)."""
     if class_ids is None:
         raise ValueError("class-parallel soft-NMS is per class: class_ids "
                          "is required")
@@ -176,7 +178,7 @@ def soft_nms_classes_reference(boxes: torch.Tensor, scores: torch.Tensor,
     new_scores = torch.full((bsz, k), NEG, dtype=torch.float32, device=dev)
     keep = torch.zeros((bsz, k), dtype=torch.bool, device=dev)
     rank = torch.full((bsz, k), k, dtype=torch.int32, device=dev)
-    work = torch.zeros(bsz, dtype=torch.int64, device=dev)
+    work = torch.zeros((bsz, 2), dtype=torch.int64, device=dev)
     if bsz == 0 or k == 0:
         return (new_scores, keep, rank, work) if return_work else (
             new_scores, keep, rank)
@@ -226,7 +228,7 @@ def soft_nms_classes_reference(boxes: torch.Tensor, scores: torch.Tensor,
         if not bool(any_row.any()):
             break
         if return_work:
-            work += open_.sum((1, 2))
+            work[:, 0] += open_.sum((1, 2))
         first = torch.where(cand >= rmax, idx, kc).min(dim=2,
                                                        keepdim=True).values
         selected = selected | ((idx == first) & any_row)
@@ -248,6 +250,8 @@ def soft_nms_classes_reference(boxes: torch.Tensor, scores: torch.Tensor,
             wgt = torch.where(ov > iou_threshold, 0.0, 1.0)
 
         decay = active & ~selected & any_row
+        if return_work:
+            work[:, 1] += (decay & overlap_pos).sum((1, 2))
         cur = torch.where(decay, cur * wgt, cur)
         active = active & ~(decay & overlap_pos & (cur < score_threshold))
 

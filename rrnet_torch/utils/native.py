@@ -6,8 +6,9 @@ plain C interface and loaded with ctypes. Libraries go to
 a hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
 an edited source is rebuilt and an unchanged one is built once.
 `build_all` starts one `nvcc` per stale library, all at once; it also
-builds another copy of the sources (an earlier commit's) into another
-directory, for a timing of the two side by side.
+builds another copy of the sources (an earlier commit's), or the same
+sources with extra flags (a `-D` setting), into another directory, for a
+timing of the two side by side.
 """
 
 from __future__ import annotations
@@ -51,31 +52,35 @@ def _nvcc() -> str:
     return found
 
 
-def _flags(name: str) -> List[str]:
-    return NVCC_FLAGS + SOURCES[name][1]
+def _flags(name: str, extra: Sequence[str] = ()) -> List[str]:
+    return NVCC_FLAGS + SOURCES[name][1] + list(extra)
 
 
-def _target(name: str, csrc: Path, build_dir: Path) -> Path:
+def _target(name: str, csrc: Path, build_dir: Path,
+            extra: Sequence[str] = ()) -> Path:
     digest = hashlib.sha256((csrc / SOURCES[name][0]).read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(_flags(name)).encode())
+    digest.update(" ".join(_flags(name, extra)).encode())
     return build_dir / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Sequence[str] = tuple(SOURCES), csrc: Path = CSRC,
-              build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
+              build_dir: Path = BUILD_DIR,
+              extra_flags: Sequence[str] = ()) -> Dict[str, Path]:
     """Build every library of `names` (sources in `csrc`, libraries in
-    `build_dir`) that is not current, one `nvcc` process each, all started
-    together; raises if any build fails. Returns each library's path."""
+    `build_dir`, `extra_flags` after each source's own) that is not
+    current, one `nvcc` process each, all started together; raises if any
+    build fails. Returns each library's path."""
     build_dir.mkdir(parents=True, exist_ok=True)
-    targets = {name: _target(name, csrc, build_dir) for name in names}
+    targets = {name: _target(name, csrc, build_dir, extra_flags)
+               for name in names}
     jobs = []
     for name, target in targets.items():
         if target.exists():
             continue
         tmp = target.parent / f"{target.stem}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+        cmd = [_nvcc(), *_flags(name, extra_flags), "-o", str(tmp),
                str(csrc / SOURCES[name][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

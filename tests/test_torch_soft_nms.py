@@ -15,8 +15,6 @@ tests that use it, and there the CUDA cases run with
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
-from hypothesis import strategies as st
 
 from rrnet_torch.ops import soft_nms as tsn
 
@@ -109,182 +107,50 @@ def test_wrapper_rejects_non_cuda_devices():
                      torch.from_numpy(scores).to("meta"))
 
 
-def soft_nms_rounds(boxes, scores, valid=None, class_ids=None, *,
-                    sigma=0.5, iou_threshold=0.3, score_threshold=0.001,
-                    method="gaussian", max_out=None, top=4):
-    """The multi-pick rounds of csrc/soft_nms.cu, emulated on the CPU with
-    the arithmetic of `ops.nms.soft_nms`, op by op and on tensors of its
-    shapes. Each round takes an image's open candidates in key order
-    (score descending, lower index first, -0 as +0), c1, c2, ..., and the
-    longest prefix c1..cp (p <= top, and no further than the steps left)
-    whose boxes pairwise do not overlap (iw > 0 && ih > 0, and the same
-    class when gated) and whose c2..cp score above 0; the picks get ranks
-    step..step+p-1 and their decays apply in that order. Where a zero
-    overlap does not weigh exactly 1 or a weight can leave [0, 1]
-    (gaussian with sigma <= 0, hard with a threshold < 0) a round takes
-    one pick. Returns (new_scores, keep, rank, rounds per image)."""
-    from rrnet_torch.ops.nms import NEG
-    bsz, k = scores.shape
-    steps = k if max_out is None else min(max_out, k)
-    multi = (sigma > 0 if method == "gaussian" else
-             method == "linear" or not 0.0 > iou_threshold)
-    if valid is None:
-        valid = torch.ones((bsz, k), dtype=torch.bool)
-    x1, y1, x2, y2 = boxes.float().unbind(-1)
-    area = (x2 - x1 + 1.0) * (y2 - y1 + 1.0)
-    cur = torch.where(valid, scores.float(), torch.full_like(x1, NEG))
-    active = valid.clone()
-    selected = torch.zeros_like(valid)
-    rank = torch.full((bsz, k), k, dtype=torch.int32)
-    rounds = torch.zeros(bsz, dtype=torch.int64)
-    step = [0] * bsz
-
-    def apart(i, a, b):
-        iw = (torch.minimum(x2[i, a], x2[i, b])
-              - torch.maximum(x1[i, a], x1[i, b]) + 1.0)
-        ih = (torch.minimum(y2[i, a], y2[i, b])
-              - torch.maximum(y1[i, a], y1[i, b]) + 1.0)
-        same = class_ids is None or bool(class_ids[i, a] == class_ids[i, b])
-        return not (bool(iw > 0.0) and bool(ih > 0.0) and same)
-
-    while True:
-        picks = []
-        for i in range(bsz):
-            cand = active[i] & ~selected[i] & (cur[i] > NEG)
-            if step[i] >= steps or not bool(cand.any()):
-                picks.append([])
-                continue
-            ids = torch.nonzero(cand)[:, 0]
-            order = ids[torch.sort(cur[i, ids], descending=True,
-                                   stable=True).indices].tolist()
-            p = [order[0]]
-            for c in order[1:top] if multi else []:
-                if (step[i] + len(p) >= steps or not bool(cur[i, c] > 0.0)
-                        or not all(apart(i, q, c) for q in p)):
-                    break
-                p.append(c)
-            for t, m in enumerate(p):
-                selected[i, m] = True
-                rank[i, m] = step[i] + t
-            step[i] += len(p)
-            rounds[i] += 1
-            picks.append(p)
-        if not any(picks):
-            break
-        for t in range(top):
-            has = torch.tensor([len(p) > t for p in picks])[:, None]
-            if not bool(has.any()):
-                break
-            m = torch.tensor([p[t] if len(p) > t else 0 for p in picks])
-            m = m[:, None]
-            bx1, by1 = torch.gather(x1, 1, m), torch.gather(y1, 1, m)
-            bx2, by2 = torch.gather(x2, 1, m), torch.gather(y2, 1, m)
-            barea = (bx2 - bx1 + 1.0) * (by2 - by1 + 1.0)
-            iw = torch.minimum(bx2, x2) - torch.maximum(bx1, x1) + 1.0
-            ih = torch.minimum(by2, y2) - torch.maximum(by1, y1) + 1.0
-            overlap_pos = (iw > 0.0) & (ih > 0.0)
-            inter = iw.clamp(min=0.0) * ih.clamp(min=0.0)
-            ov = inter / (barea + area - inter).clamp(min=1e-12)
-            ov = torch.where(overlap_pos, ov, 0.0)
-            if class_ids is not None:
-                same = class_ids == torch.gather(class_ids, 1, m)
-                ov = torch.where(same, ov, 0.0)
-                overlap_pos = overlap_pos & same
-            if method == "linear":
-                wgt = torch.where(ov > iou_threshold, 1.0 - ov, 1.0)
-            elif method == "gaussian":
-                wgt = torch.exp(-(ov * ov) / sigma)
-            else:
-                wgt = torch.where(ov > iou_threshold, 0.0, 1.0)
-            decay = active & ~selected & has
-            cur = torch.where(decay, cur * wgt, cur)
-            active = active & ~(decay & overlap_pos & (cur < score_threshold))
-    return cur, selected, rank, rounds
-
-
-@st.composite
-def adversarial(draw):
-    """Small box sets that hit the multi-pick rule's edges: boxes on a
-    coarse grid (identical, touching, nested, x2 < x1), equal, zero, -0
-    and negative scores, validity, classes, all three methods, sigma
-    +-0.5, hard with threshold -0.1, and max_out cutting a round."""
-    b = draw(st.integers(1, 3))
-    k = draw(st.integers(1, 24))
-    coord = st.sampled_from([0.0, 0.5, 1.0, 2.0, 3.0, 4.5, 6.0, 8.0, 10.0,
-                             13.0])
-    boxes = np.array(draw(st.lists(coord, min_size=b * k * 4,
-                                   max_size=b * k * 4)),
-                     np.float32).reshape(b, k, 4)
-    score = st.sampled_from([0.9, 0.7, 0.5, 0.5, 0.3, 0.05, 0.0, -0.0,
-                             -0.2, 1.0])
-    scores = np.array(draw(st.lists(score, min_size=b * k, max_size=b * k)),
-                      np.float32).reshape(b, k)
-    valid = np.array(draw(st.lists(st.booleans(), min_size=b * k,
-                                   max_size=b * k))).reshape(b, k)
-    cls = np.array(draw(st.lists(st.integers(0, 2), min_size=b * k,
-                                 max_size=b * k)), np.int32).reshape(b, k)
-    method, sigma, thr = draw(st.sampled_from([
-        ("gaussian", 0.5, 0.3), ("gaussian", -0.5, 0.3),
-        ("linear", 0.5, 0.3), ("hard", 0.5, 0.3), ("hard", 0.5, -0.1)]))
-    kw = dict(method=method, sigma=sigma, iou_threshold=thr,
-              score_threshold=draw(st.sampled_from([0.001, 0.2])),
-              max_out=draw(st.one_of(st.none(), st.integers(0, k + 2))))
-    return (boxes, scores, draw(st.sampled_from([None, valid])),
-            draw(st.sampled_from([None, cls])), kw)
-
-
-@settings(max_examples=150, deadline=None, database=None, derandomize=True)
-@given(adversarial())
-def test_multi_pick_rounds_equal_the_serial_loop(case):
-    boxes, scores, valid, cls, kw = case
-    t = (lambda a: None if a is None else torch.from_numpy(a))
-    args = (t(boxes), t(scores), t(valid), t(cls))
-    ns, keep, rank, rounds = soft_nms_rounds(*args, **kw)
-    rns, rkeep, rrank = tsn.soft_nms_reference(*args, **kw)
-    assert torch.equal(keep, rkeep)
-    assert torch.equal(rank, rrank)
-    # every score, kept or not, carries the same decays in the same order
-    assert torch.equal(ns.view(torch.int32), rns.view(torch.int32))
-    assert (rounds <= keep.sum(1)).all()
-
-
-def separated(b, k, seed):
-    """Boxes on a grid of cells, one per cell: no two overlap."""
-    rng = np.random.RandomState(seed)
+def grid(b, k, identical):
+    """k boxes an image: one per cell of a grid (no two overlap), or all
+    the same box; scores falling with the index, so the picks go in index
+    order."""
     cell = np.arange(k, dtype=np.float32)
-    x = (cell % 40) * 20.0
-    y = (cell // 40) * 20.0
+    x = np.zeros(k, np.float32) if identical else (cell % 8) * 20.0
+    y = np.zeros(k, np.float32) if identical else (cell // 8) * 20.0
     boxes = np.stack([x, y, x + 10.0, y + 10.0], -1)[None].repeat(b, 0)
-    return boxes.astype(np.float32), rng.rand(b, k).astype(np.float32)
+    scores = np.linspace(0.9, 0.1, k, dtype=np.float32)[None].repeat(b, 0)
+    return boxes, scores
 
 
-@pytest.mark.parametrize("method,sigma,thr,multi", [
-    ("gaussian", 0.5, 0.3, True), ("linear", 0.5, 0.3, True),
-    ("hard", 0.5, 0.3, True), ("hard", 0.5, 0.0, True),
-    ("gaussian", -0.5, 0.3, False), ("hard", 0.5, -0.1, False)])
-def test_rounds_fall_back_to_one_pick_where_the_rule_fails(method, sigma,
-                                                           thr, multi):
-    """Where the multi-pick condition fails a round takes one pick (rounds
-    equal the selections); where it holds, boxes that never overlap go
-    `top` a round."""
-    boxes, scores, cls, valid = dets(2, 150, seed=9)
-    sep_b, sep_s = separated(2, 150, seed=9)
-    kw = dict(method=method, sigma=sigma, iou_threshold=thr,
-              score_threshold=0.1, max_out=None)
-    for b, s, c in ((boxes, scores, cls), (boxes, scores, None),
-                    (sep_b, sep_s, None)):
-        args = (torch.from_numpy(b), torch.from_numpy(s), None,
-                torch.from_numpy(c) if c is not None else None)
-        _, keep, rank, rounds = soft_nms_rounds(*args, **kw)
-        ref = tsn.soft_nms_reference(*args, **kw)
-        assert torch.equal(keep, ref[1]) and torch.equal(rank, ref[2])
-        sel = keep.sum(1)
-        if not multi:
-            assert torch.equal(rounds, sel)
-        elif b is sep_b:
-            assert torch.equal(rounds, (sel + 3) // 4)
+@pytest.mark.parametrize("layout,per_class,max_out", [
+    ("separated", False, None), ("separated", True, None),
+    ("separated", False, 7), ("identical", False, None),
+    ("identical", True, None)])
+def test_work_counts_open_and_overlapping_slots(layout, per_class, max_out):
+    """return_work: per image the open slots summed over the steps (every
+    open slot takes the argmax and the overlap test) and the slots among
+    them that overlap the pick (only they take the decay's arithmetic),
+    counted on layouts where both are known: nothing drops below the
+    threshold 0, so step s has n - s open slots; separated boxes never
+    overlap; identical boxes all overlap, within their class when
+    gated."""
+    k = 20
+    boxes, scores = grid(2, k, layout == "identical")
+    valid = np.ones((2, k), bool)
+    valid[1, ::5] = False                  # image 1: 16 valid boxes
+    cls = np.tile(np.arange(k, dtype=np.int32) % 2, (2, 1))
+    t = torch.from_numpy
+    work = tsn.soft_nms_reference(
+        t(boxes), t(scores), t(valid), t(cls) if per_class else None,
+        sigma=0.5, score_threshold=0.0, max_out=max_out,
+        return_work=True)[3]
+    for i, n in enumerate(valid.sum(1)):
+        steps = n if max_out is None else min(max_out, n)
+        open_ = sum(n - s for s in range(steps))
+        if layout == "separated":
+            over = 0
+        elif per_class:                    # n / 2 boxes of each class
+            over = 2 * sum(range(n // 2))
         else:
-            assert (rounds < sel).all()
+            over = open_ - steps
+        assert work[i].tolist() == [open_, over]
 
 
 def edge_cases():
@@ -320,8 +186,8 @@ def edge_cases():
         ("degenerate_boxes", degen, s[:, :600], v[:, :600], None, 512, {}),
         ("agnostic_k4096", big_b, big_s, None, None, 512, {}),
         ("agnostic_b1", b[:1], s[:1], None, None, 512, {}),
-        ("max_out_mid_round", b, s, None, c, 37, {}),
-        ("max_out_mid_round_agnostic", b, s, None, None, 3, {}),
+        ("max_out_37", b, s, None, c, 37, {}),
+        ("max_out_3_agnostic", b, s, None, None, 3, {}),
         ("hard_negative_threshold", b[:, :600], s[:, :600], None, c[:, :600],
          512, dict(method="hard", iou_threshold=-0.1)),
     ]
@@ -346,31 +212,6 @@ def test_cuda_kernel_matches_plain(cuda_device, case):
     assert torch.equal(got[2], ref[2])
     k = ref[1]
     torch.testing.assert_close(got[0][k], ref[0][k], rtol=1e-5, atol=0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [e[0] for e in edge_cases()])
-def test_cuda_multi_pick_rounds(cuda_device, case):
-    """The kernel's two designs (one pick a step; multi-pick rounds) are
-    bitwise equal, and the rounds the kernel counts are the CPU
-    emulation's."""
-    from chip_smoke import soft_nms_variant
-    name, boxes, scores, valid, cls, max_out, settings = next(
-        e for e in edge_cases() if e[0] == case)
-    t = (lambda a: None if a is None else
-         torch.from_numpy(np.ascontiguousarray(a)))
-    args = (t(boxes), t(scores), t(valid), t(cls))
-    kw = dict(dict(sigma=0.5, iou_threshold=0.7, score_threshold=0.1,
-                   method="gaussian"), max_out=max_out, **settings)
-    dev_args = [None if a is None else a.to(cuda_device) for a in args]
-    one = soft_nms_variant(torch, top=1)(*dev_args, **kw)
-    multi = soft_nms_variant(torch, top=4)(*dev_args, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(one[0].view(torch.int32), multi[0].view(torch.int32))
-    assert torch.equal(one[1], multi[1]) and torch.equal(one[2], multi[2])
-    assert torch.equal(one[3].cpu(), one[1].sum(1).int().cpu())
-    rounds = soft_nms_rounds(*args, **kw)[3]
-    assert torch.equal(multi[3].cpu().long(), rounds)
 
 
 @pytest.fixture

@@ -88,8 +88,9 @@ def test_plain_matches_serial_plain_by_contract(method, max_out, masked):
 
 
 def test_work_counts_open_slots_of_each_class():
-    """return_work: the open slots summed over the steps of each class;
-    one class alone gives the serial version's count."""
+    """return_work: the open slots summed over the steps of each class,
+    and the overlapping ones among them; one class alone gives the serial
+    version's counts."""
     boxes, scores, _, _ = dets(2, 120, seed=3)
     one = np.zeros((2, 120), np.int32)
     kw = dict(sigma=0.5, iou_threshold=0.3, score_threshold=0.2)
@@ -100,7 +101,8 @@ def test_work_counts_open_slots_of_each_class():
                                    return_work=True, **kw)[3]
     # the serial loop also counts 0 for the steps after exhaustion
     assert torch.equal(work, swork)
-    assert (work > 120).all()
+    assert (work[:, 0] > 120).all()
+    assert ((work[:, 1] > 0) & (work[:, 1] < work[:, 0])).all()
 
 
 def edge_cases():
