@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--before DIR]
 
 Phases (any failure exits non-zero before the result line):
-  1. device: the card's name and power limit from nvidia-smi, and
+  1. device: the card's name and power limit from nvidia-smi, whether
+     PIL and OpenCV import and where nvJPEG lies under the toolkit, and
      PyTorch's TF32 settings, which the run leaves at their defaults
      (the port pins its f32 convolutions to f32 itself);
   2. build: every CUDA kernel of the port from `rrnet_torch/csrc/`, one
@@ -57,10 +58,19 @@ Phases (any failure exits non-zero before the result line):
      inf pixels that must leave the whole state bitwise as it was; one
      step's own decoded candidates are selected again by the plain
      fixpoint (the step's ROIs), and by the class-parallel and the serial
-     soft-NMS kernels (the same ROIs).
+     soft-NMS kernels (the same ROIs);
+  8. data and eval path: the JPEG route (PIL) against a recorded decode
+     of the demo frame, the synthetic set (32+8 images,
+     seed 219), `TrainLoader` alone at the preset's defaults (samples/s),
+     20 train steps at batch 4 through `TrainLoader` -> `DevicePrefetcher`
+     -> `Trainer.train_step` (step p50, the wait on `get_batch`, loader
+     skips, hard-NMS launches), a checkpoint restored bitwise into a fresh
+     Trainer, `Evaluator.evaluate_split` over the 8 val images held to
+     `predict_batch` and scored by `evaluate_results`, and its throughput
+     on 16 frames of 765x1360 at batch 4.
 Each path runs with every launch count set to 0 just before it and read
-just after. Then one JSON line lists every kernel, and the last line is
-the result. It exits non-zero without a result when no CUDA device is
+just after. Then a JSON line holds the data path's numbers, one lists every kernel,
+and the last line is the result. It exits non-zero without a result when no CUDA device is
 present.
 """
 
@@ -111,6 +121,28 @@ def card_line():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def jpeg_probe():
+    """Print whether PIL and cv2 import here, and where nvJPEG's library
+    and header lie under the toolkit that `nvcc` belongs to."""
+    import importlib
+    from pathlib import Path
+    for mod in ("PIL", "cv2"):
+        try:
+            m = importlib.import_module(mod)
+            print(f"  {mod}: imports, {getattr(m, '__version__', '?')}",
+                  flush=True)
+        except ImportError as e:
+            print(f"  {mod}: does not import ({e})", flush=True)
+    from rrnet_torch.utils import native
+    home = os.path.dirname(os.path.dirname(os.path.realpath(native._nvcc())))
+    libs = sorted(str(p) for d in ("lib64", "targets/x86_64-linux/lib")
+                  for p in Path(home, d).glob("libnvjpeg*"))
+    heads = sorted(str(p) for d in ("include", "targets/x86_64-linux/include")
+                   for p in Path(home, d).glob("nvjpeg.h"))
+    print(f"  toolkit {home}: nvJPEG libraries {libs or 'none'}; header "
+          f"{heads or 'none'}", flush=True)
 
 
 def cuda_ms(fn, reps, warm=2):
@@ -1811,6 +1843,206 @@ def run_train_path(torch, sn, hn, card):
     return hard, soft, classes
 
 
+def check_jpeg_route():
+    """The JPEG route of this machine (PIL, `rrnet_torch/data/jpeg.py`):
+    the demo frame's decode held to the 8x8-block means recorded from a
+    CPU machine's PIL decode (tests/data/demo_jpeg_block_means.npy)
+    within 2 LSB, an encode -> decode round trip of a seeded image at
+    quality 92 at PSNR >= 38 dB, and a grayscale JPEG decoded to three
+    equal channels. Returns what it measured."""
+    import tempfile
+    from rrnet_torch.data import jpeg
+    img = jpeg.decode(os.path.join(HERE, "data", "demo", "images",
+                                   "0000364_01765_d_0000782.jpg"))
+    want = np.load(os.path.join(HERE, "tests", "data",
+                                "demo_jpeg_block_means.npy"))
+    bh, bw = want.shape[:2]
+    got = img[:bh * 8, :bw * 8].astype(np.float64).reshape(
+        bh, 8, bw, 8, 3).mean((1, 3))
+    gap = float(np.abs(got - want).max())
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:96, 0:128]
+    seeded = np.clip(np.stack([xx * 2, yy * 2, xx + yy], -1)
+                     + rng.normal(0, 2, (96, 128, 3)), 0, 255).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as d:
+        jpeg.encode(os.path.join(d, "a.jpg"), seeded, quality=92)
+        back = jpeg.decode(os.path.join(d, "a.jpg"))
+        jpeg.encode(os.path.join(d, "g.jpg"), seeded[..., 0], quality=95)
+        gray = jpeg.decode(os.path.join(d, "g.jpg"))
+    psnr = 10 * np.log10(255.0 ** 2 / np.mean(
+        (back.astype(np.float64) - seeded) ** 2))
+    gray_ok = gray.shape == (96, 128, 3) and bool(
+        (gray[..., 0] == gray[..., 1]).all() and
+        (gray[..., 1] == gray[..., 2]).all())
+    print(f"  JPEG route: PIL ({jpeg.__name__}); demo frame {img.shape} "
+          f"block means within {gap:.4f} LSB of the recorded ones "
+          f"(bound 2); round trip at quality 92 {psnr:.2f} dB (bound 38); "
+          f"grayscale decodes to 3 equal channels: {gray_ok}", flush=True)
+    if gap > 2.0 or psnr < 38.0 or not gray_ok:
+        raise AssertionError("the JPEG route failed its checks")
+    return {"route": "pil", "demo_block_mean_gap": gap, "psnr_q92_db": psnr}
+
+
+def run_data_path(torch, hn, card):
+    """Phase 8: the data and eval path at the preset's full width. Makes
+    the synthetic set, times `TrainLoader` alone (the preset's 4 threads,
+    FillDuck with the roadmap), trains 20 steps at batch 4 through
+    `TrainLoader` -> `DevicePrefetcher` -> `Trainer.train_step`, holds a
+    checkpoint restored into a fresh Trainer bitwise to the state, runs
+    `Evaluator.evaluate_split` over the 8 val images (held to
+    `predict_batch` through `save_result`, byte for byte) and
+    `evaluate_results`, and times `evaluate_split` on 16 frames of
+    765x1360. Returns (the JSON "data" entry, hard_nms launches)."""
+    import tempfile
+    from rrnet_torch import config as cfglib
+    from rrnet_torch.data import jpeg
+    from rrnet_torch.data.loader import DevicePrefetcher, TrainLoader, ValLoader
+    from rrnet_torch.data.synth import make_synth_dataset
+    from rrnet_torch.data.transforms import _resize_image
+    from rrnet_torch.evallib.infer import Evaluator
+    from rrnet_torch.evallib.metrics import evaluate_results
+    from rrnet_torch.evallib.writer import save_result
+    from rrnet_torch.train import Trainer
+    from rrnet_torch.utils import checkpoint as ckpt
+
+    entry = {"jpeg": check_jpeg_route()}
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, "synth")
+    t0 = time.perf_counter()
+    make_synth_dataset(root, n_train=32, n_val=8, seed=219)
+    entry["synth_s"] = time.perf_counter() - t0
+    print(f"  synthetic set (32 train + 8 val, seed 219) made in "
+          f"{entry['synth_s']:.2f} s", flush=True)
+    cfg = cfglib.apply_overrides(cfglib.rrnet_config(), [
+        f"data_root={root}", "val.scales=(1.0,)", "val.flip_tta=False"])
+
+    # the loader alone: 64 samples after one warm-up batch
+    loader = TrainLoader(cfg, 4)
+    try:
+        loader.get_batch()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            loader.get_batch()
+        rate = 64 / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+    entry["loader_samples_per_s"] = rate
+    print(f"  TrainLoader alone ({cfg.train.num_workers} threads, FillDuck "
+          f"with the roadmap, 512x512 crops): {rate:.2f} samples/s over 64 "
+          f"samples on {os.cpu_count()} host cores; a 4x512x512 step of "
+          f"~172 ms needs ~23", flush=True)
+
+    # 20 steps through the prefetcher
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state()
+    train_loader = TrainLoader(cfg, 4)
+    pf = DevicePrefetcher(train_loader, device="cuda")
+    step_ms, wait_ms, totals = [], [], []
+    hn.launches = 0                                   # count this run only
+    try:
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = pf.get_batch()
+            t1 = time.perf_counter()
+            state, m = trainer.train_step(state, batch)
+            totals.append(m["total"])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            wait_ms.append((t1 - t0) * 1e3)
+            step_ms.append((t2 - t0) * 1e3)
+    finally:
+        pf.close()
+    launches = hn.launches                            # read just after
+    totals = [float(v) for v in totals]
+    entry.update(step_p50_ms=float(np.percentile(step_ms[2:], 50)),
+                 wait_p50_ms=float(np.percentile(wait_ms[2:], 50)),
+                 loader_skips=train_loader.skips, hard_nms_launches=launches)
+    print(f"  20 train steps 4x512x512 from the loader on {card}: step p50 "
+          f"{entry['step_p50_ms']:.2f} ms, waiting on get_batch p50 "
+          f"{entry['wait_p50_ms']:.2f} ms (steps 3-20; per step "
+          f"{[round(x, 1) for x in step_ms]}, waits "
+          f"{[round(x, 1) for x in wait_ms]}); loader skips "
+          f"{train_loader.skips}; hard_nms launches {launches} in 20 "
+          f"forwards; totals {[round(x, 4) for x in totals]}", flush=True)
+    if train_loader.skips or launches != 20 or not all(
+            np.isfinite(totals)):
+        raise AssertionError(f"data path: {train_loader.skips} loader skips, "
+                             f"{launches} hard_nms launches (want 0, 20), "
+                             f"totals {totals}")
+
+    # checkpoint -> a fresh Trainer
+    path = ckpt.save_checkpoint(os.path.join(tmp.name, "log"), state)
+    fresh = Trainer(cfg, device="cuda")
+    restored = ckpt.restore_checkpoint(
+        path, fresh.init_state(generator=torch.Generator().manual_seed(1)))
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+    diff = [k for k, v in state.tensors().items()
+            if not torch.equal(bits(v), bits(restored.tensors()[k]))]
+    print(f"  checkpoint at step {int(state.step)} restored into a fresh "
+          f"Trainer: params, BN statistics, moments, counts and step bitwise "
+          f"equal: {not diff}", flush=True)
+    if diff:
+        raise AssertionError(f"restored state differs in {diff}")
+    del fresh, restored
+
+    # evaluate_split over the val split, against predict_batch
+    model = trainer.model
+    model.load_state_dict(state.state_dict())
+    ev = Evaluator(cfg, model, device="cuda")
+    val = ValLoader(cfg)
+    res = ev.evaluate_split(val, result_dir=os.path.join(tmp.name, "res"),
+                            batch_size=4, verbose=False)
+    items = list(val)
+    buckets = {}                     # evaluate_split's batches: by bucket,
+    for it in items:                 # leftovers padded with the last image
+        h, w = it["image"].shape[:2]
+        buckets.setdefault((-(-h // ev.bucket_multiple),
+                            -(-w // ev.bucket_multiple)), []).append(it)
+    same = True
+    for group in (q[i:i + 4] for q in buckets.values()
+                  for i in range(0, len(q), 4)):
+        imgs = [g["image"] for g in group]
+        for it, pred in zip(group, ev.predict_batch(
+                imgs + imgs[-1:] * (4 - len(imgs)))):
+            save_result(os.path.join(tmp.name, "direct.txt"), pred)
+            with open(os.path.join(tmp.name, "direct.txt"), "rb") as f, \
+                    open(os.path.join(res, it["name"] + ".txt"), "rb") as g:
+                same = same and f.read() == g.read()
+    ap = evaluate_results(res, os.path.join(root, "val", "annotations"),
+                          verbose=False)
+    entry["ap"] = {k: ap[k] for k in ("ap", "ap50", "ap75", "ar")}
+    print(f"  evaluate_split over {len(items)} val images at batch 4: files "
+          f"== predict_batch through save_result, byte for byte: {same}; "
+          f"after 20 steps AP {ap['ap']:.4f} AP50 {ap['ap50']:.4f} AP75 "
+          f"{ap['ap75']:.4f} AR {ap['ar']:.4f} (a record, not a bar)",
+          flush=True)
+    if not same:
+        raise AssertionError("evaluate_split's files differ from "
+                             "predict_batch's")
+
+    # throughput: 16 frames of 765x1360 (the 768x1408 bucket), batch 4
+    demo = jpeg.decode(os.path.join(HERE, "data", "demo", "images",
+                                    "0000364_01765_d_0000782.jpg"))
+    frame = _resize_image(demo, (1360, 765))
+    frames = [{"name": f"f{i:02d}", "image": np.roll(frame, 37 * i, axis=1)}
+              for i in range(16)]
+    out_dir = os.path.join(tmp.name, "thr")
+    ev.evaluate_split(frames[:4], result_dir=out_dir, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev.evaluate_split(frames, result_dir=out_dir, batch_size=4,
+                      verbose=False)
+    secs = time.perf_counter() - t0
+    entry["eval_images_per_s"] = 16 / secs
+    print(f"  evaluate_split throughput, 16 frames 765x1360 in the 768x1408 "
+          f"bucket at batch 4 on {card}: {16 / secs:.2f} images/s "
+          f"({secs * 1e3:.1f} ms, files written)", flush=True)
+    tmp.cleanup()
+    return entry, launches
+
+
 def main(argv=None) -> int:
     import argparse
     from pathlib import Path
@@ -1834,6 +2066,7 @@ def main(argv=None) -> int:
     phase("device")
     card = card_line()
     print(card, flush=True)
+    jpeg_probe()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; TF32 at "
           f"PyTorch's defaults: cudnn.conv.fp32_precision="
           f"{torch.backends.cudnn.conv.fp32_precision!r}, "
@@ -1904,6 +2137,12 @@ def main(argv=None) -> int:
     (hard["train_path_launches"], soft["train_path_launches"],
      classes["train_path_launches"]) = run_train_path(torch, sn, hn, card)
 
+    phase("data and eval path")
+    t0 = time.perf_counter()
+    data, hard["data_path_launches"] = run_data_path(torch, hn, card)
+    print(f"  phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print(json.dumps({"data": data}), flush=True)
     print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard]}),
           flush=True)
     print(card, flush=True)

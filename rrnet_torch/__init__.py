@@ -10,7 +10,9 @@ Ground rules:
   * Imports. This package imports `torch` and numpy only. It never
     imports `jax`, `flax` or anything of `rrnet_tpu`, not even that
     package's pure-numpy modules; what it needs from them is copied
-    here (`config.py`, `data/yuv420.py`). `tests/test_torch_rrnet.py`
+    here (`config.py`, `data/`, `evallib/{metrics,writer}.py`,
+    `utils/timer.py`). JPEG files go through PIL (`data/jpeg.py`,
+    imported inside its functions); OpenCV is not used. `tests/test_torch_rrnet.py`
     enforces this.
   * Layout. Modules compute in NCHW (cuDNN's layout). Public results keep
     the JAX package's NHWC shapes: `RRNetOutputs.hms/whs/offsets`,
@@ -38,5 +40,10 @@ and backward as the CUDA kernels `csrc/dcn_fwd.cu` and `csrc/dcn_bwd.cu`
 train step on one card (`train.Trainer`: targets, losses, criterions,
 schedule, skip-aware Adam, `utils.checkpoint`); and the class-parallel
 soft-NMS (`ops.soft_nms.soft_nms_auto(..., class_parallel=True)`) as the
-CUDA kernel `csrc/soft_nms_classes.cu`.
+CUDA kernel `csrc/soft_nms_classes.cu`; the data pipeline (`data.visdrone`,
+`data.transforms`, `data.synth`, `data.loader`), the train CLI
+(`python -m rrnet_torch.scripts.train`), and the split evaluator
+(`evallib.infer.Evaluator.evaluate_split`, `evallib.metrics`) with the
+synthetic train -> eval -> AP gate (`python -m
+rrnet_torch.scripts.synth_gate`).
 """

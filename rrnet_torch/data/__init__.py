@@ -1,1 +1,2 @@
-"""Host image transport."""
+"""Data: the VisDrone reader, JPEG I/O, the training transforms, the
+synthetic set, the loaders, and the host image transport."""

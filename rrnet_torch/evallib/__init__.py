@@ -1,1 +1,1 @@
-"""Bucketed inference over full images."""
+"""Bucketed inference over full images, VisDrone result files and AP."""

@@ -9,16 +9,21 @@ the bucket, normalize, forward, stage-2 decode, and one packed
 (B, R, 6) [x, y, w, h, score, cls] result per batch, so `collect` makes
 one device->host copy.
 
+`evaluate_split` runs a whole split through a three-stage pipeline
+(upload on a thread, compute, collect) and writes VisDrone result txts.
+
 Ported so far: scale 1.0 without flip (the deployment setting), and the
 preset's `val.auto_test=True` path, which runs no host soft-NMS. Other
-scales, flip TTA and the host-NMS merge come with the eval slice and
-raise NotImplementedError until then.
+scales, flip TTA and the host-NMS merge raise NotImplementedError until
+they are ported.
 """
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Dict, List, NamedTuple, Tuple, Union
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 
 from rrnet_torch.config import Config
 from rrnet_torch.data.yuv420 import pack_yuv420, unpack_yuv420_device
+from rrnet_torch.evallib.writer import save_result
 from rrnet_torch.ops.box import decode_boxes
 from rrnet_torch.utils.device import resolve_device
 
@@ -188,3 +194,76 @@ class Evaluator:
 
     def predict(self, image: np.ndarray) -> np.ndarray:
         return self.predict_batch([image])[0]
+
+    # ------------------------------------------------------------------
+    def evaluate_split(self, loader, result_dir: Optional[str] = None,
+                       max_images: Optional[int] = None,
+                       batch_size: int = 4, verbose: bool = True) -> str:
+        """Run a split (an iterable of {"name", "image"} items, e.g.
+        `data.loader.ValLoader`), writing one VisDrone txt per image
+        (the reference's evaluation_process). Images are grouped by
+        bucket into batches; a leftover batch is padded to `batch_size`
+        with copies of its last image, whose outputs are dropped. Batch
+        k+1 is uploaded on a thread while batch k computes, and batch k
+        is collected and written after batch k+1 is dispatched. Returns
+        the result dir."""
+        result_dir = result_dir or self.cfg.val.result_dir
+        os.makedirs(result_dir, exist_ok=True)
+
+        def bucket_of(img):
+            return (_round_up(img.shape[0], self.bucket_multiple),
+                    _round_up(img.shape[1], self.bucket_multiple))
+
+        uploader = ThreadPoolExecutor(max_workers=1)
+        queues: Dict[Tuple[int, int], List] = {}
+        staged = []      # (upload future, names): transfer in progress
+        in_flight = []   # (handle, names): compute in progress
+        done = 0
+
+        def drain(entry):
+            nonlocal done
+            handle, names = entry
+            for name, pred in zip(names, self.collect(handle)):
+                save_result(os.path.join(result_dir, name + ".txt"), pred)
+            done += len(names)
+            if verbose:
+                print(f"\r[{done}]", end="", flush=True)
+
+        def pump():
+            """Advance the pipeline: upload -> compute -> collect."""
+            while len(staged) > 1 or (staged and not in_flight):
+                fut, names = staged.pop(0)
+                in_flight.append((self.dispatch_batch(fut.result()), names))
+                if len(in_flight) > 1:
+                    drain(in_flight.pop(0))
+
+        def flush(q, pad_to: Optional[int] = None):
+            names = [it["name"] for it in q]
+            imgs = [it["image"] for it in q]
+            if pad_to and len(imgs) < pad_to:
+                imgs = imgs + [imgs[-1]] * (pad_to - len(imgs))
+            staged.append((uploader.submit(self._upload, imgs), names))
+            pump()
+
+        try:
+            count = 0
+            for item in loader:
+                if max_images is not None and count >= max_images:
+                    break
+                count += 1
+                b = bucket_of(item["image"])
+                queues.setdefault(b, []).append(item)
+                if len(queues[b]) >= batch_size:
+                    flush(queues.pop(b))
+            for q in list(queues.values()):
+                flush(q, pad_to=batch_size)
+            while staged:
+                fut, names = staged.pop(0)
+                in_flight.append((self.dispatch_batch(fut.result()), names))
+            while in_flight:
+                drain(in_flight.pop(0))
+        finally:
+            uploader.shutdown()
+        if verbose:
+            print("\n=> Evaluation Done!")
+        return result_dir
