@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the result line):
      PyTorch's TF32 settings, which the run leaves at their defaults
      (the port pins its f32 convolutions to f32 itself);
   2. build: every CUDA kernel of the port from `rrnet_torch/csrc/`, one
-     `nvcc` per source, all started together; ptxas register and spill
-     lines;
+     `nvcc` per source, and the host soft-NMS library (`g++`), all
+     started together; ptxas register and spill lines;
   3. kernels: each kernel against its plain PyTorch version on the card
      at its path's shapes, plus edge cases, and timed against its bound;
      the serial soft-NMS timed class-agnostic at B=4 and B=1 and per
@@ -67,9 +67,20 @@ Phases (any failure exits non-zero before the result line):
      skips, hard-NMS launches), a checkpoint restored bitwise into a fresh
      Trainer, `Evaluator.evaluate_split` over the 8 val images held to
      `predict_batch` and scored by `evaluate_results`, and its throughput
-     on 16 frames of 765x1360 at batch 4.
+     on 16 frames of 765x1360 at batch 4;
+  9. eval protocol: the presets' own eval protocol at full width (bf16,
+     seeded weights) over 8 frames of 765x1360 at batch 4: RRNet at the
+     default val settings (six scales, `hard_nms` launched once a scale a
+     batch, images/s, peak memory; the scale-1 program against a
+     single-scale Evaluator), with `val.auto_test=False` (the host
+     soft-NMS merge against its plain numpy version, ms an image) and
+     with flip TTA (fused against unfused: recorded in bf16, held within
+     1e-2 px and 1e-4 in f32); the device preprocess at
+     scale 1.5 against the CPU's; CenterNet at its preset (train steps at
+     4x512x512, then six scales with the fused flip, images/s).
 Each path runs with every launch count set to 0 just before it and read
-just after. Then a JSON line holds the data path's numbers, one lists every kernel,
+just after. Then JSON lines hold the data path's and the eval protocol's
+numbers, one lists every kernel,
 and the last line is the result. It exits non-zero without a result when no CUDA device is
 present.
 """
@@ -2043,6 +2054,297 @@ def run_data_path(torch, hn, card):
     return entry, launches
 
 
+def match_rows(got, want, box_tol, score_tol):
+    """Match one image's (N, 6) rows one to one: same class, score within
+    score_tol, box within box_tol (rows with near-equal scores may come
+    in either order). Returns (all matched and equal counts, the largest
+    box gap and score gap over the matched rows, rows matched)."""
+    used = np.zeros(len(want), bool)
+    box_gap = score_gap = 0.0
+    matched = 0
+    for row in got:
+        ok = (~used & (want[:, 5] == row[5])
+              & (np.abs(want[:, 4] - row[4]) <= score_tol)
+              & (np.abs(want[:, :4] - row[:4]).max(1) <= box_tol))
+        if not ok.any():
+            continue
+        j = int(np.argmax(ok))
+        used[j] = True
+        matched += 1
+        box_gap = max(box_gap, float(np.abs(want[j, :4] - row[:4]).max()))
+        score_gap = max(score_gap, float(abs(want[j, 4] - row[4])))
+    return (matched == len(got) == len(want), box_gap, score_gap, matched)
+
+
+def demo_frames(n):
+    """n frames of 765x1360: the demo frame resized as the data phase does,
+    each rolled along x by another amount."""
+    from rrnet_torch.data import jpeg
+    from rrnet_torch.data.transforms import _resize_image
+    demo = jpeg.decode(os.path.join(HERE, "data", "demo", "images",
+                                    "0000364_01765_d_0000782.jpg"))
+    frame = _resize_image(demo, (1360, 765))
+    return [{"name": f"f{i:02d}", "image": np.roll(frame, 37 * i, axis=1)}
+            for i in range(n)]
+
+
+def run_eval_protocol(torch, hn, sn, card):
+    """Phase 9: the presets' own eval protocol at full width (bf16, seeded
+    weights) over 8 frames of 765x1360 at batch 4. RRNet at its default
+    val settings (six scales, no flip, auto_test): images/s, hard_nms
+    launches (6 a batch), peak memory, and the scale-1 program's rows of
+    one batch against a single-scale Evaluator's; with auto_test=False:
+    the host merge against its plain version and its host ms per image;
+    with flip TTA, fused against unfused (the gap recorded in bf16, the
+    bound held on the same weights in f32). CenterNet at its preset: train
+    steps at 4x512x512 and the protocol with the fused flip at six
+    scales. The card's preprocess at scale 1.5 against the CPU's.
+    Returns (the JSON "eval_protocol" entry, hard_nms launches of the
+    RRNet run)."""
+    import dataclasses
+    import tempfile
+    from rrnet_torch import config as cfglib
+    from rrnet_torch.evallib import host_nms
+    from rrnet_torch.evallib.infer import Evaluator
+    from rrnet_torch.models import build_model
+    from rrnet_torch.profile_train import synthetic_batch
+    from rrnet_torch.train import Trainer
+
+    entry = {}
+    frames = demo_frames(8)
+    imgs = [f["image"] for f in frames[:4]]
+    tmp = tempfile.TemporaryDirectory()
+
+    def with_val(cfg, **kw):
+        return cfg.replace(val=dataclasses.replace(cfg.val, **kw))
+
+    def throughput(ev, label):
+        """evaluate_split over the 8 frames at batch 4 after a warm-up
+        over 4 (cuDNN plans of every scaled shape); images/s and the peak
+        memory of the timed run."""
+        out_dir = os.path.join(tmp.name, label)
+        ev.evaluate_split(frames[:4], result_dir=out_dir, verbose=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ev.evaluate_split(frames, result_dir=out_dir, batch_size=4,
+                          verbose=False)
+        secs = time.perf_counter() - t0
+        return 8 / secs, torch.cuda.max_memory_allocated(), out_dir
+
+    # RRNet at the preset's default val settings
+    cfg = cfglib.rrnet_config()
+    scales = tuple(cfg.val.scales)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    ev = Evaluator(cfg, model, device="cuda")
+    shapes = [ev._scaled_shape((768, 1408), sc) for sc in scales]
+    print(f"  rrnet preset: scales {scales}, flip_tta {cfg.val.flip_tta}, "
+          f"auto_test {cfg.val.auto_test}; scaled shapes of the 768x1408 "
+          f"bucket {shapes}; model built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ev.evaluate_split(frames[:4], result_dir=os.path.join(tmp.name, "w"),
+                      verbose=False)
+    torch.cuda.synchronize()
+    hn.launches = sn.launches = sn.classes_launches = 0    # count this run
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev.evaluate_split(frames, result_dir=os.path.join(tmp.name, "rr"),
+                      batch_size=4, verbose=False)
+    secs = time.perf_counter() - t0
+    launches = hn.launches                                 # read just after
+    other = sn.launches + sn.classes_launches
+    peak = torch.cuda.max_memory_allocated()
+    entry["rrnet_six_scales"] = {
+        "images_per_s": 8 / secs, "hard_nms_launches": launches,
+        "hard_nms_launches_per_batch": launches / 2,
+        "max_memory_allocated_gib": peak / 2**30}
+    print(f"  rrnet, six scales, no flip, auto_test, 8 frames 765x1360 at "
+          f"batch 4 on {card}: {8 / secs:.2f} images/s ({secs * 1e3:.1f} "
+          f"ms, files written); hard_nms launches {launches} in 2 batches "
+          f"(want 12: one a scale a batch), soft-NMS launches {other}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    if launches != 6 * 2 or other:
+        raise AssertionError(f"eval protocol: {launches} hard_nms launches "
+                             f"(want 12), {other} soft-NMS launches (want 0)")
+
+    # the scale-1 program against a single-scale Evaluator
+    single = Evaluator(with_val(cfg, scales=(1.0,)), model, device="cuda")
+    pending, hws = ev.dispatch_batch(imgs)
+    multi_rows = ev.gather((pending[:1], hws))       # the scale-1 program
+    single_rows = single.predict_batch(imgs)
+    bitwise = all(a.shape == b.shape and np.array_equal(a, b)
+                  for a, b in zip(multi_rows, single_rows))
+    res = [match_rows(a, b, 1e-3, 1e-5) for a, b in
+           zip(multi_rows, single_rows)]
+    print(f"  scale-1 program of the six-scale run against a single-scale "
+          f"Evaluator, one batch of 4: bitwise equal {bitwise}; rows "
+          f"matched {[r[3] for r in res]} of "
+          f"{[len(b) for b in single_rows]}, largest gaps "
+          f"{max(r[1] for r in res):.3g} px, {max(r[2] for r in res):.3g} "
+          f"in score", flush=True)
+    if not all(r[0] for r in res):
+        raise AssertionError("the six-scale run's scale-1 rows differ from "
+                             "a single-scale Evaluator's")
+
+    # auto_test=False: the host merge, against its plain version
+    merged_ev = Evaluator(with_val(cfg, auto_test=False), model,
+                          device="cuda")
+    pre = merged_ev.gather(merged_ev.dispatch_batch(imgs))
+    t0 = time.perf_counter()
+    merged = [merged_ev.merge(p) for p in pre]
+    merge_ms = (time.perf_counter() - t0) * 1e3 / len(pre)
+    def plain_merge(pred):
+        # Evaluator.merge with the numpy soft-NMS in place of the library
+        pred = pred[pred[:, 4] > cfg.val.score_threshold]
+        pred = host_nms.per_class_soft_nms_xywh(
+            pred, Nt=cfg.model.soft_nms.iou_threshold,
+            threshold=cfg.model.soft_nms.score_threshold,
+            soft_nms_fn=host_nms._soft_nms_numpy)
+        return pred[np.argsort(-pred[:, 4], kind="stable")]
+
+    t0 = time.perf_counter()
+    plain = [plain_merge(p) for p in pre]
+    plain_ms = (time.perf_counter() - t0) * 1e3 / len(pre)
+    # the plain version decays in numpy's f32 order, so scores differ in
+    # the last bits and near-equal kept rows may swap places: rows are
+    # matched (the same box and class), scores within 1e-5 (all <= 1)
+    res = [match_rows(a, b, 0.0, 1e-5) for a, b in zip(merged, plain)]
+    in_order = all(a.shape == b.shape and np.array_equal(a[:, [0, 1, 2, 3, 5]],
+                                                         b[:, [0, 1, 2, 3, 5]])
+                   for a, b in zip(merged, plain))
+    merged_rate, _, _ = throughput(merged_ev, "merged")
+    entry["host_merge"] = {"ms_per_image": merge_ms,
+                           "evaluate_split_images_per_s": merged_rate,
+                           "plain_ms_per_image": plain_ms,
+                           "rows_in": [len(p) for p in pre],
+                           "rows_out": [len(m) for m in merged],
+                           "plain_rows_out": [len(p) for p in plain],
+                           "max_score_gap": max(r[2] for r in res)}
+    print(f"  auto_test=False: host merge (score filter, per-class soft-NMS "
+          f"in the g++ library) {merge_ms:.2f} ms an image on the host, "
+          f"plain numpy version {plain_ms:.2f} ms; rows "
+          f"{entry['host_merge']['rows_in']} -> "
+          f"{entry['host_merge']['rows_out']} (plain "
+          f"{entry['host_merge']['plain_rows_out']}); matched "
+          f"{[r[3] for r in res]} with equal boxes and classes, scores "
+          f"within {entry['host_merge']['max_score_gap']:.3g} (bound "
+          f"1e-5); in the same order: {in_order}; evaluate_split with the "
+          f"merge, 8 frames at batch 4: {merged_rate:.2f} images/s", flush=True)
+    if not all(r[0] for r in res):
+        raise AssertionError("the host merge differs from its plain version")
+
+    # flip TTA: fused (one 2B forward a scale) against unfused. In f32 (the
+    # same weights) every row within 1e-2 px and 1e-4 in score. In bf16
+    # cuDNN takes other algorithms for 2B images than for B, and a bf16
+    # rounding flips some top-k or NMS choices of the random-weight model:
+    # equal row counts, and at least 97% of each image's rows within
+    # 1e-2 px and 1e-4 (98.39-98.76% in every run on an H100 80GB HBM3)
+    def flip_gap(model_, dtype):
+        flip_cfg = with_val(cfg, flip_tta=True)
+        fused = Evaluator(flip_cfg, model_, device="cuda", fuse_flip=True)
+        unfused = Evaluator(flip_cfg, model_, device="cuda", fuse_flip=False)
+        a_rows, b_rows = fused.predict_batch(imgs), unfused.predict_batch(imgs)
+        res = [match_rows(a, b, 1e-2, 1e-4) for a, b in zip(a_rows, b_rows)]
+        wide = [match_rows(a, b, 1.0, 1e-4) for a, b in zip(a_rows, b_rows)]
+        out = {"rows": [len(b) for b in b_rows],
+               "matched": [r[3] for r in res],
+               "max_box_gap_px": max(r[1] for r in res),
+               "max_score_gap": max(r[2] for r in res),
+               "matched_within_1px": [r[3] for r in wide],
+               "max_box_gap_px_within_1px": max(r[1] for r in wide),
+               "min_share_matched": min(r[3] / max(len(b), 1) for r, b
+                                        in zip(res, b_rows))}
+        print(f"  rrnet {dtype} with flip TTA at six scales, one batch of 4: "
+              f"fused (2B a forward) against unfused: rows matched "
+              f"{out['matched']} of {out['rows']} within 1e-2 px and 1e-4 "
+              f"(largest gaps {out['max_box_gap_px']:.3g} px, "
+              f"{out['max_score_gap']:.3g} in score); within 1 px "
+              f"{out['matched_within_1px']}, largest gap "
+              f"{out['max_box_gap_px_within_1px']:.3g} px", flush=True)
+        same_rows = [len(a) for a in a_rows] == out["rows"]
+        return out, same_rows, all(r[0] for r in res)
+
+    bf16, same_rows, _ = flip_gap(model, "bf16")
+    entry["flip_fused_vs_unfused_bf16"] = bf16
+    if not same_rows or bf16["min_share_matched"] < 0.97:
+        raise AssertionError(
+            f"fused flip differs from unfused in bf16: row counts equal "
+            f"{same_rows}, least share of an image's rows matched "
+            f"{bf16['min_share_matched']:.4f} (bound 0.97)")
+    f32_model = build_model(cfglib.rrnet_config(**{"model.dtype": "float32"}),
+                            device="cuda")
+    entry["flip_fused_vs_unfused_f32"], _, ok = flip_gap(f32_model, "f32")
+    del f32_model
+    if not ok:
+        raise AssertionError("fused flip differs from unfused in f32")
+
+    # the device resize at scale 1.5: the card against the CPU
+    tiny = cfglib.rrnet_config(**{"model.backbone": "tiny_hourglass",
+                                  "model.dtype": "float32"})
+    cpu_ev = Evaluator(cfg, build_model(tiny, device="cpu"), device="cpu")
+    scaled = ev._scaled_shape((768, 1408), 1.5)
+    with torch.inference_mode():
+        gx, gv = ev._preprocess(ev._upload(imgs), scaled, "both")
+        cx, cv = cpu_ev._preprocess(cpu_ev._upload(imgs), scaled, "both")
+    gap = float((gx.cpu() - cx).abs().max())
+    same_vhw = torch.equal(gv.cpu(), cv)
+    entry["resize_gap_scale_1_5"] = gap
+    print(f"  device preprocess at scale 1.5 ({scaled}, flip both) on the "
+          f"card against the CPU: largest gap {gap:.3g} (bound 1e-5), "
+          f"scaled extents equal {same_vhw}", flush=True)
+    if gap > 1e-5 or not same_vhw:
+        raise AssertionError("the card's preprocess differs from the CPU's")
+    del ev, single, merged_ev, model
+
+    # CenterNet at its preset: train steps, then the protocol with flip
+    ct = cfglib.centernet_config()
+    trainer = Trainer(ct, device="cuda")
+    state = trainer.init_state()
+    batch = synthetic_batch(np.random.RandomState(ct.seed))
+    torch.cuda.reset_peak_memory_stats()
+    ms, totals = [], []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        totals.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(np.isfinite(list(t.values())).all() for t in totals)
+    entry["centernet_train"] = {
+        "step_p50_ms": float(np.percentile(ms[2:], 50)),
+        "max_memory_allocated_gib": peak / 2**30,
+        "totals": [t["total"] for t in totals]}
+    print(f"  centernet preset train step, 4x512x512 {ct.model.dtype}, on "
+          f"{card}: p50 {entry['centernet_train']['step_p50_ms']:.2f} ms "
+          f"(steps 3-8; {[round(x, 1) for x in ms]}); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; losses finite {finite}; totals "
+          f"{[round(t['total'], 4) for t in totals]}", flush=True)
+    if not finite:
+        raise AssertionError(f"centernet train losses not finite: {totals}")
+    model = trainer.model.eval()
+    model.load_state_dict(state.state_dict())
+    ct_ev = Evaluator(ct, model, device="cuda")
+    rate, peak, out_dir = throughput(ct_ev, "ct")
+    n_rows = 0
+    for name in os.listdir(out_dir):
+        with open(os.path.join(out_dir, name)) as f:
+            n_rows += len(f.readlines())
+    entry["centernet_six_scales_flip"] = {
+        "images_per_s": rate, "max_memory_allocated_gib": peak / 2**30,
+        "rows_written": n_rows}
+    print(f"  centernet preset protocol (six scales, fused flip, k=250, "
+          f"auto_test), 8 frames 765x1360 at batch 4 on {card}: "
+          f"{rate:.2f} images/s; max_memory_allocated {peak / 2**30:.2f} "
+          f"GiB; {n_rows} rows written", flush=True)
+    if n_rows == 0:
+        raise AssertionError("centernet eval wrote no detections")
+    tmp.cleanup()
+    return entry, launches
+
+
 def main(argv=None) -> int:
     import argparse
     from pathlib import Path
@@ -2075,10 +2377,10 @@ def main(argv=None) -> int:
 
     phase("build")
     t0 = time.perf_counter()
-    native.build_all()
+    native.build_all(tuple(native.SOURCES) + tuple(native.HOST_SOURCES))
     secs = time.perf_counter() - t0
-    print(f"  kernels {sorted(native.SOURCES)} built in {secs:.1f} s",
-          flush=True)
+    print(f"  kernels {sorted(native.SOURCES)} and the host library "
+          f"{sorted(native.HOST_SOURCES)} built in {secs:.1f} s", flush=True)
     for name in native.SOURCES:
         for line in native.build_log(name):
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -2142,7 +2444,14 @@ def main(argv=None) -> int:
     data, hard["data_path_launches"] = run_data_path(torch, hn, card)
     print(f"  phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    phase("eval protocol")
+    t0 = time.perf_counter()
+    protocol, hard["eval_protocol_launches"] = run_eval_protocol(
+        torch, hn, sn, card)
+    print(f"  phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(json.dumps({"data": data}), flush=True)
+    print(json.dumps({"eval_protocol": protocol}), flush=True)
     print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard]}),
           flush=True)
     print(card, flush=True)

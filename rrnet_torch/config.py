@@ -129,7 +129,21 @@ def rrnet_config(**overrides: Any) -> Config:
     return cfg
 
 
-PRESETS = {"rrnet": rrnet_config}
+def centernet_config(**overrides: Any) -> Config:
+    """The CenterNet preset (reference configs/centernet_config.py): no
+    SyncBN, flip TTA at eval."""
+    cfg = Config(
+        log_prefix="CenterNet",
+        model=ModelConfig(name="centernet", backbone="hourglass",
+                          num_stacks=2, sync_bn=False),
+        val=ValConfig(flip_tta=True),
+    )
+    for k, v in overrides.items():
+        cfg = set_by_path(cfg, k, v)
+    return cfg
+
+
+PRESETS = {"rrnet": rrnet_config, "centernet": centernet_config}
 
 
 def set_by_path(cfg: Any, path: str, value: Any) -> Any:

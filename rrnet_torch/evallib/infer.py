@@ -1,21 +1,24 @@
-"""Bucketed inference over full images, rrnet branch (port of
-`rrnet_tpu/evallib/infer.py:79-600`).
+"""Multi-scale, flip-TTA inference over full images with shape
+bucketing, RRNet and CenterNet branches (port of
+`rrnet_tpu/evallib/infer.py:79-678`).
 
 One host->device transfer per batch, as uint8: images are padded on the
 host to a 16-rounded wire shape (sticky per bucket, so same-bucket
 requests reuse one shape), packed (planar I420 or raw RGB) and copied
-once from pinned memory. On the device: unpack, edge-replicate pad to
-the bucket, normalize, forward, stage-2 decode, and one packed
-(B, R, 6) [x, y, w, h, score, cls] result per batch, so `collect` makes
-one device->host copy.
+once from pinned memory. On the device, once a batch: unpack,
+edge-replicate pad to the bucket, normalize. Then per protocol scale
+(`val.scales`) and flip: bilinear resize to the scaled bucket
+(`bucket * scale` rounded up to `bucket_multiple`), horizontal flip
+within each image's valid width, forward, decode, and one packed
+(B, K, 6) [x, y, w, h, score, cls] result, so `collect` makes one
+device->host copy per program. Flip TTA runs the flipped and unflipped
+halves as one 2B forward (`fuse_flip=True`, the default) or as two.
 
+`collect` undoes the flip and the scale, concatenates each image's rows
+over the programs and, for `val.auto_test=False`, merges them on the
+host: score filter, then per-class gaussian soft-NMS (`host_nms`).
 `evaluate_split` runs a whole split through a three-stage pipeline
 (upload on a thread, compute, collect) and writes VisDrone result txts.
-
-Ported so far: scale 1.0 without flip (the deployment setting), and the
-preset's `val.auto_test=True` path, which runs no host soft-NMS. Other
-scales, flip TTA and the host-NMS merge raise NotImplementedError until
-they are ported.
 """
 
 from __future__ import annotations
@@ -31,8 +34,11 @@ import torch.nn.functional as F
 
 from rrnet_torch.config import Config
 from rrnet_torch.data.yuv420 import pack_yuv420, unpack_yuv420_device
+from rrnet_torch.evallib import host_nms
 from rrnet_torch.evallib.writer import save_result
+from rrnet_torch.models.rrnet import mask_heatmap_extent
 from rrnet_torch.ops.box import decode_boxes
+from rrnet_torch.ops.heatmap import topk_decode
 from rrnet_torch.utils.device import resolve_device
 
 
@@ -46,19 +52,51 @@ class StagedBatch(NamedTuple):
     bucket: Tuple[int, int]
     hws: List[Tuple[int, int]]
     tight: Tuple[int, int]  # wire shape (padding to bucket added on device)
+    valid_hw: torch.Tensor  # (B, 2) int32 [h, w] of each image, on the device
+
+
+def _flip_valid_width(img: torch.Tensor, w_valid: torch.Tensor
+                      ) -> torch.Tensor:
+    """Flip only the first w_valid[b] columns of each (B, C, H, W) image
+    horizontally, so the content stays left-aligned and the extent mask
+    still applies."""
+    w = img.shape[-1]
+    xs = torch.arange(w, device=img.device)[None, :]
+    wv = w_valid.to(img.device, torch.int64)[:, None]
+    src = torch.where(xs < wv, wv - 1 - xs, xs)
+    return torch.gather(img, 3, src[:, None, None, :].expand(img.shape))
+
+
+def scaled_valid_hw(valid_hw: torch.Tensor, bucket: Tuple[int, int],
+                    scaled: Tuple[int, int]) -> torch.Tensor:
+    """Each image's valid [h, w] in the scaled bucket, (B, 2) int32:
+    ceil(valid * scaled / bucket), the product an f32 multiply by the
+    ratio rounded to f32, as the JAX package computes it (an f64 ceil
+    moves the extent by a pixel at some widths, and the flip's mirror
+    with it). A tensor times a Python float multiplies in f32."""
+    vhw = valid_hw.float()
+    return torch.stack([torch.ceil(vhw[:, 0] * (scaled[0] / bucket[0])),
+                        torch.ceil(vhw[:, 1] * (scaled[1] / bucket[1]))],
+                       dim=1).to(torch.int32)
 
 
 class Evaluator:
-    """Runs an RRNet over full images and produces (N, 6)
-    [x, y, w, h, score, cls(1-based)] detections in original pixels."""
+    """Runs a trained RRNet or CenterNet over full images and produces
+    (N, 6) [x, y, w, h, score, cls(1-based)] detections in original
+    pixels, with the preset's eval protocol (`cfg.val`: scales, flip TTA,
+    auto_test)."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module, *,
                  device: Union[str, torch.device] = "cuda",
-                 bucket_multiple: int = 128, stage2_decode: str = "full"):
-        """model: the port's RRNet (moved to `device`, set to eval).
-        stage2_decode: "full" applies the stage-2 deltas, "stage1" reports
-        the stage-1 ROIs, "zero" decodes with all-zero deltas."""
-        if cfg.model.name != "rrnet":
+                 bucket_multiple: int = 128, decode_topk: int = 250,
+                 fuse_flip: bool = True, stage2_decode: str = "full"):
+        """model: the port's RRNet or CenterNet (moved to `device`, set
+        to eval). decode_topk: CenterNet's top-k per image (RRNet takes
+        `model.topk`). fuse_flip: flip TTA as one forward of 2B images
+        (True) or two of B. stage2_decode (RRNet): "full" applies the
+        stage-2 deltas, "stage1" reports the stage-1 ROIs, "zero" decodes
+        with all-zero deltas."""
+        if cfg.model.name not in ("rrnet", "centernet"):
             raise NotImplementedError(f"Evaluator for {cfg.model.name!r} "
                                       "is not ported yet")
         if stage2_decode not in ("full", "stage1", "zero"):
@@ -69,6 +107,8 @@ class Evaluator:
         self.model = model.to(self.device).eval()
         self.stage2_decode = stage2_decode
         self.bucket_multiple = bucket_multiple
+        self.decode_topk = decode_topk
+        self.fuse_flip = fuse_flip
         self.transport = cfg.val.transport
         self.mean = torch.tensor(cfg.val.mean, dtype=torch.float32,
                                  device=self.device)[:, None, None]
@@ -78,7 +118,7 @@ class Evaluator:
         self._pad_scratch: Dict[Tuple, np.ndarray] = {}
 
     # ------------------------------------------------------------------
-    def _preprocess(self, staged: StagedBatch) -> torch.Tensor:
+    def _normalize(self, staged: StagedBatch) -> torch.Tensor:
         """Wire payload -> normalized (B, 3, bh, bw) f32 at the bucket."""
         (bh, bw), (th, tw) = staged.bucket, staged.tight
         flat = staged.payload
@@ -89,18 +129,55 @@ class Evaluator:
             x = flat.reshape(n, th, tw, 3).float() / 255.0
         x = x.permute(0, 3, 1, 2)
         if (th, tw) != (bh, bw):
-            # edge-replicate, as the host pad: a zero band would bleed
-            # -mean/std into the valid border through a resize
+            # edge-replicate, as the host pad: at scales > 1 the bilinear
+            # resize samples ~1 px past the valid extent, and a zero band
+            # would bleed -mean/std into the valid border
             x = F.pad(x, (0, bw - tw, 0, bh - th), mode="replicate")
         return (x - self.mean) / self.std
 
-    def _forward(self, staged: StagedBatch) -> torch.Tensor:
-        """Forward + stage-2 decode -> (B, R, 6) packed rows; invalid rows
-        get score -1."""
-        x = self._preprocess(staged)
-        vhw = torch.tensor(staged.hws, dtype=torch.int32, device=self.device)
-        outs = self.model(x, valid_hw=vhw)
+    def _preprocess(self, staged: StagedBatch, scaled: Tuple[int, int],
+                    flip, base: Optional[torch.Tensor] = None):
+        """The input of one program: the normalized bucket (`base`, or
+        made from `staged`) resized to `scaled` and flipped (False, True,
+        or "both": unflipped then flipped, 2B images). Returns (x, the
+        scaled valid [h, w] per image as a (B or 2B, 2) int32 tensor)."""
+        x = self._normalize(staged) if base is None else base
+        bucket = staged.bucket
+        if tuple(scaled) != tuple(bucket):
+            # jax.image.resize's "bilinear": half-pixel centres, edges
+            # clamped, and a widened (antialiased) kernel only where an
+            # axis shrinks
+            shrinks = scaled[0] < bucket[0] or scaled[1] < bucket[1]
+            x = F.interpolate(x, size=tuple(scaled), mode="bilinear",
+                              align_corners=False, antialias=shrinks)
+            vhw = scaled_valid_hw(staged.valid_hw, bucket, scaled)
+        else:
+            vhw = staged.valid_hw       # ceil(v * 1.0) == v: nothing to do
+        if flip == "both":
+            x = torch.cat([x, _flip_valid_width(x, vhw[:, 1])], dim=0)
+            vhw = torch.cat([vhw, vhw], dim=0)
+        elif flip:
+            x = _flip_valid_width(x, vhw[:, 1])
+        return x, vhw
+
+    def _forward(self, x: torch.Tensor, vhw: torch.Tensor) -> torch.Tensor:
+        """Forward + decode -> (B, K, 6) packed rows [x, y, w, h, score,
+        cls + 1]; invalid rows get score -1."""
         s = self.cfg.train.scale_factor
+        if self.cfg.model.name == "centernet":
+            # the last stack only, decoded to the top decode_topk with no
+            # peak NMS (the reference operator's transform_bbox)
+            hms, whs, regs = self.model(x)
+            hm = mask_heatmap_extent(hms[-1].float(), vhw, s)
+            dets = topk_decode(hm, whs[-1].float(), regs[-1].float(),
+                               k=self.decode_topk, scale_factor=float(s))
+            boxes = dets.boxes
+            xywh = torch.cat([boxes[..., :2], boxes[..., 2:4] - boxes[..., :2]],
+                             -1)
+            score = torch.where(dets.scores > 0, dets.scores, -1.0)
+            cls = dets.classes.float() + 1.0
+            return torch.cat([xywh, score[..., None], cls[..., None]], dim=-1)
+        outs = self.model(x, valid_hw=vhw)
         rois_xyxy = outs.rois * s
         rois_xywh = torch.cat([rois_xyxy[..., :2],
                                rois_xyxy[..., 2:4] - rois_xyxy[..., :2]], -1)
@@ -148,46 +225,102 @@ class Evaluator:
         if self.transport == "yuv420":
             flat = pack_yuv420(padded)
         else:
-            flat = padded.reshape(len(images), -1).copy()
-        host = torch.from_numpy(flat)
-        if self.device.type == "cuda":
-            # the caching host allocator keeps the block until the copy
-            # has finished, so the next batch cannot overwrite it
-            host = host.pin_memory()
-        payload = host.to(self.device, non_blocking=True)
-        return StagedBatch(payload, (bh, bw), list(zip(hs, ws)), (th, tw))
+            flat = padded.reshape(len(images), -1)
+        hws = list(zip(hs, ws))
+        # one host buffer and one copy: the wire rows, then each image's
+        # valid [h, w] as int32 (a row's bytes are a multiple of 4, since
+        # th and tw are multiples of 16). On the card the buffer is
+        # pinned; the caching host allocator keeps the block until the
+        # copy has finished, so the next batch cannot overwrite it
+        n, row = flat.shape
+        buf = torch.empty(n * (row + 8), dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        host = buf.numpy()
+        host[:n * row] = flat.reshape(-1)
+        host[n * row:].view(np.int32)[:] = np.asarray(hws, np.int32).ravel()
+        wire = buf.to(self.device, non_blocking=True)
+        payload = wire[:n * row].view(n, row)
+        valid_hw = wire[n * row:].view(torch.int32).view(n, 2)
+        return StagedBatch(payload, (bh, bw), hws, (th, tw), valid_hw)
+
+    def _scaled_shape(self, bucket: Tuple[int, int], scale: float
+                      ) -> Tuple[int, int]:
+        return (_round_up(int(bucket[0] * scale), self.bucket_multiple),
+                _round_up(int(bucket[1] * scale), self.bucket_multiple))
 
     # ------------------------------------------------------------------
     def dispatch_batch(self, images):
-        """Queue the device work for a same-bucket batch (a list of HWC
-        uint8 images, or a StagedBatch); returns a handle for `collect`."""
+        """Queue the device work of every (scale, flip) program for a
+        same-bucket batch (a list of HWC uint8 images, or a StagedBatch);
+        returns a handle for `collect`."""
         cfg = self.cfg
-        if cfg.val.flip_tta:
-            raise NotImplementedError("flip TTA is not ported yet")
-        if tuple(cfg.val.scales) != (1.0,):
-            raise NotImplementedError(
-                f"eval scales {cfg.val.scales} are not ported yet; the "
-                "deployment setting is (1.0,)")
         staged = images if isinstance(images, StagedBatch) else \
             self._upload(images)
+        if cfg.val.flip_tta:
+            flips = ("both",) if self.fuse_flip else (True, False)
+        else:
+            flips = (False,)
+        pending = []
         with torch.inference_mode():
-            out = self._forward(staged)
-        return out, len(staged.hws)
+            base = self._normalize(staged)
+            for scale in cfg.val.scales:
+                scaled = self._scaled_shape(staged.bucket, scale)
+                ry = scaled[0] / staged.bucket[0]
+                rx = scaled[1] / staged.bucket[1]
+                for flip in flips:
+                    x, vhw = self._preprocess(staged, scaled, flip, base)
+                    pending.append((self._forward(x, vhw), flip, ry, rx))
+        return pending, staged.hws
 
     def collect(self, handle) -> List[np.ndarray]:
-        """Copy a dispatched batch to the host -> per-image (N, 6) rows
-        sorted by score."""
-        packed, n = handle
-        if not self.cfg.val.auto_test:
-            raise NotImplementedError("the host soft-NMS merge "
-                                      "(val.auto_test=False) is not ported "
-                                      "yet")
-        packed = packed.cpu().numpy().astype(np.float64)
+        """Copy a dispatched batch to the host -> per-image (N, 6) rows in
+        original pixels, sorted by score (stable); with
+        `val.auto_test=False`, merged on the host first (`merge`)."""
+        rows = self.gather(handle)
+        if self.cfg.val.auto_test:
+            return rows
+        return [self.merge(pred) for pred in rows]
+
+    def gather(self, handle) -> List[np.ndarray]:
+        """Per image, the rows of every program of a dispatched batch in
+        original pixels (flip and scale undone), concatenated and sorted
+        by score (stable)."""
+        pending, hws = handle
+        n = len(hws)
+        per_img: List[List[np.ndarray]] = [[] for _ in range(n)]
+        for packed, flip, ry, rx in pending:
+            packed = packed.cpu().numpy().astype(np.float64)
+            # a fused flip program returns 2n images: [0, n) unflipped,
+            # [n, 2n) flipped
+            for idx in range(packed.shape[0]):
+                b = idx % n
+                flipped = bool(flip) if flip != "both" else idx >= n
+                rows = packed[idx][packed[idx, :, 4] >= 0.0]
+                if flipped:
+                    # the scaled valid width, as preprocess rounds it
+                    w_s = float(np.ceil(np.float32(hws[b][1]) *
+                                        np.float32(rx)))
+                    rows[:, 0] = w_s - rows[:, 0] - rows[:, 2]
+                rows[:, [0, 2]] /= rx
+                rows[:, [1, 3]] /= ry
+                per_img[b].append(rows)
         outs = []
-        for i in range(n):
-            rows = packed[i][packed[i, :, 4] >= 0.0]
-            outs.append(rows[np.argsort(-rows[:, 4], kind="stable")])
+        for parts in per_img:
+            pred = np.concatenate(parts, axis=0)
+            outs.append(pred[np.argsort(-pred[:, 4], kind="stable")])
         return outs
+
+    def merge(self, pred: np.ndarray) -> np.ndarray:
+        """The host merge of one image's gathered rows (`val.auto_test=
+        False`): rows scoring above `val.score_threshold`, per-class
+        gaussian soft-NMS (`model.soft_nms`: Nt, score threshold), sorted
+        by score (stable)."""
+        cfg = self.cfg
+        pred = pred[pred[:, 4] > cfg.val.score_threshold]
+        pred = host_nms.per_class_soft_nms_xywh(
+            pred, Nt=cfg.model.soft_nms.iou_threshold,
+            threshold=cfg.model.soft_nms.score_threshold)
+        return pred[np.argsort(-pred[:, 4], kind="stable")]
 
     def predict_batch(self, images) -> List[np.ndarray]:
         return self.collect(self.dispatch_batch(images))
@@ -209,6 +342,8 @@ class Evaluator:
         the result dir."""
         result_dir = result_dir or self.cfg.val.result_dir
         os.makedirs(result_dir, exist_ok=True)
+        style = ("centernet" if self.cfg.model.name == "centernet"
+                 else "rrnet")
 
         def bucket_of(img):
             return (_round_up(img.shape[0], self.bucket_multiple),
@@ -224,7 +359,8 @@ class Evaluator:
             nonlocal done
             handle, names = entry
             for name, pred in zip(names, self.collect(handle)):
-                save_result(os.path.join(result_dir, name + ".txt"), pred)
+                save_result(os.path.join(result_dir, name + ".txt"), pred,
+                            style=style)
             done += len(names)
             if verbose:
                 print(f"\r[{done}]", end="", flush=True)

@@ -29,6 +29,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from rrnet_torch.evallib.host_nms import per_class_soft_nms_xywh
 from rrnet_torch.evallib.writer import load_result
 
 THRESHOLDS = np.arange(0.5, 1.0, 0.05)
@@ -216,4 +217,32 @@ def evaluate_results(pred_dir: str, target_dir: str, cls_num: int = 11,
         print(f"Average Precision  (AP) @[ IoU=0.75     ] = {out['ap75']:.4}.")
         print(f"Average Recall     (AR) @[ IoU=0.50:0.95] = {out['ar']:.4}.")
         print(f"Cost Time: {time.time() - st}s")
+    return out
+
+
+def auto_evaluate_results(pred_dir: str, target_dir: str,
+                          score_threshold: float,
+                          softnms_threshold: float,
+                          cls_num: int = 11, max_det_num: int = 500,
+                          verbose: bool = True) -> Dict:
+    """Post-hoc score-threshold x soft-NMS grid point (metrics.py:254-305):
+    filter raw predictions by score, per-class gaussian soft-NMS
+    (Nt=0.7) on the host library, then score as usual."""
+    names = [os.path.splitext(os.path.basename(p))[0]
+             for p in glob.glob(os.path.join(pred_dir, "*.txt"))]
+    acc = APAccumulator(cls_num)
+    for name in sorted(names):
+        pred = load_result(os.path.join(pred_dir, f"{name}.txt"))
+        target = load_result(os.path.join(target_dir, f"{name}.txt"))
+        pred = pred[pred[:, 4] > score_threshold]
+        pred = pred[np.argsort(-pred[:, 4], kind="stable")]
+        pred = per_class_soft_nms_xywh(pred, Nt=0.7,
+                                       threshold=softnms_threshold)
+        pred = _int_truncate_xywh(pred)
+        pred = pred[np.argsort(-pred[:, 4], kind="stable")][:max_det_num]
+        acc.add_image(pred, target[:max_det_num])
+    out = acc.compute()
+    if verbose:
+        print(f"[auto] thr={score_threshold} nms={softnms_threshold} "
+              f"AP={out['ap']:.4f} AP50={out['ap50']:.4f}")
     return out

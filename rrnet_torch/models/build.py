@@ -1,4 +1,5 @@
-"""Config -> model (port of `rrnet_tpu/models/build.py:16-40`), and
+"""Config -> model (port of `rrnet_tpu/models/build.py:16-40`: RRNet and
+CenterNet), and
 name -> backbone for the backbones no ported detector runs yet."""
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ import torch
 
 from rrnet_torch.config import Config
 from rrnet_torch.models.backbones import get_backbone
+from rrnet_torch.models.centernet import CenterNet
 from rrnet_torch.models.layers import dtype_of, init_weights
 from rrnet_torch.models.rrnet import RRNet
 from rrnet_torch.utils.device import resolve_device
@@ -19,21 +21,27 @@ def build_model(cfg: Config, device: Union[str, torch.device] = "cuda",
     """The configured detector in eval mode on `device`, its weights drawn
     on the CPU from `generator` (default: seeded with cfg.seed), so one
     seed gives the same weights on every machine. Load trained weights
-    with `load_state_dict` (see utils.from_flax). Only 'rrnet' is
-    ported."""
+    with `load_state_dict` (see utils.from_flax). 'rrnet' and 'centernet'
+    are ported."""
     dev = resolve_device(device)
     m = cfg.model
-    if m.name != "rrnet":
+    if m.name == "centernet":
+        model = CenterNet(num_classes=cfg.num_classes,
+                          num_stacks=m.num_stacks, backbone=m.backbone,
+                          wh_kernel=m.wh_kernel, dtype=dtype_of(m.dtype))
+    elif m.name != "rrnet":
         raise NotImplementedError(f"model {m.name!r} is not ported yet")
-    if m.with_self_attention:
+    elif m.with_self_attention:
         raise NotImplementedError("self-attention is not ported yet")
-    model = RRNet(num_classes=cfg.num_classes, num_stacks=m.num_stacks,
-                  backbone=m.backbone, wh_kernel=m.wh_kernel, topk=m.topk,
-                  stage2_rois=m.stage2_rois, nms_type=m.nms_type_for_stage1,
-                  nms_per_class=m.nms_per_class_for_stage1,
-                  nms_iou=m.stage1_nms_iou, soft_nms_sigma=m.soft_nms.sigma,
-                  soft_nms_score_threshold=m.soft_nms.score_threshold,
-                  dtype=dtype_of(m.dtype))
+    else:
+        model = RRNet(
+            num_classes=cfg.num_classes, num_stacks=m.num_stacks,
+            backbone=m.backbone, wh_kernel=m.wh_kernel, topk=m.topk,
+            stage2_rois=m.stage2_rois, nms_type=m.nms_type_for_stage1,
+            nms_per_class=m.nms_per_class_for_stage1,
+            nms_iou=m.stage1_nms_iou, soft_nms_sigma=m.soft_nms.sigma,
+            soft_nms_score_threshold=m.soft_nms.score_threshold,
+            dtype=dtype_of(m.dtype))
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

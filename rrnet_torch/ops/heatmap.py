@@ -1,4 +1,4 @@
-"""CenterNet heatmap decode (port of `rrnet_tpu/ops/heatmap.py:41-106`).
+"""CenterNet heatmap decode (port of `rrnet_tpu/ops/heatmap.py`).
 
 Maps are NHWC at this interface, as in the JAX package: heatmaps
 (B, H, W, C), wh/offset maps (B, H, W, 2).
@@ -9,6 +9,19 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
+
+
+def peak_nms(hm: torch.Tensor, kernel: int = 3) -> torch.Tensor:
+    """Keep only the local maxima of a (..., H, W, C) heatmap: a kxk
+    max-pool with stride 1 and -inf padding, non-peak pixels set to 0
+    (the reference's `_ctnet_nms`, operators/centernet_operator.py:
+    204-210). The pool runs on the channels-first view."""
+    *lead, h, w, c = hm.shape
+    x = hm.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    hmax = F.max_pool2d(x, kernel, stride=1, padding=(kernel - 1) // 2)
+    hmax = hmax.permute(0, 2, 3, 1).reshape(hm.shape)
+    return torch.where(hmax == hm, hm, 0.0)
 
 
 class Detections(NamedTuple):
@@ -65,3 +78,18 @@ def topk_decode(hm: torch.Tensor, wh: torch.Tensor,
                         dim=-1) * scale_factor
     return Detections(boxes=boxes, scores=top_scores, classes=cls,
                       xs=xs * scale_factor, ys=ys * scale_factor)
+
+
+def gather_feat(feat: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """Gather (B, L, C) features at (B, N) flat indices -> (B, N, C)
+    (the reference's `_gather_feat`, models/rrnet.py:82-91)."""
+    ind = ind.long()[..., None].expand(-1, -1, feat.shape[-1])
+    return torch.gather(feat, 1, ind)
+
+
+def gather_map_at(feat_map: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """Gather an NHWC map (B, H, W, C) at (B, N) flat y*W+x indices ->
+    (B, N, C) (the reference's `_transpose_and_gather_feat`,
+    models/rrnet.py:111-115)."""
+    b, h, w, c = feat_map.shape
+    return gather_feat(feat_map.reshape(b, h * w, c), ind)

@@ -1,18 +1,25 @@
-"""Synthetic train -> eval -> AP gate for the rrnet family (port of
-`scripts/synth_gate.py`'s rrnet row):
+"""Synthetic train -> eval -> AP gate for the rrnet and centernet
+families (port of `scripts/synth_gate.py`'s rows):
 
-    python -m rrnet_torch.scripts.synth_gate [--steps 1600] [--batch 8]
-        [--dir DIR] [--out SYNTH_AP_torch.json] [--device cuda] [key=value ...]
+    python -m rrnet_torch.scripts.synth_gate [--family rrnet|centernet]
+        [--steps N] [--batch 8] [--dir DIR] [--out SYNTH_AP_torch.json]
+        [--device cuda] [key=value ...]
 
 Makes the deterministic 32+8-image VisDrone-format set from the demo
-fixture (`data.synth`, seed 219), trains the `rrnet` preset on it through
-the whole input pipeline (`TrainLoader` -> `DevicePrefetcher` ->
-`Trainer.train_step`) with stage 2 gated off for the first steps // 4,
-then runs `Evaluator.evaluate_split` over the 8 val images (scale 1, no
-flip, batch 4) and `evaluate_results` for three decodes of the same
-weights: the full stage-2 re-regression, the stage-1 ROIs alone, and
-all-zero deltas. Writes the APs, the train time and the share of it the
-step loop spent waiting for batches to `--out`.
+fixture (`data.synth`, seed 219), trains the family's preset on it
+through the whole input pipeline (`TrainLoader` -> `DevicePrefetcher` ->
+`Trainer.train_step`), then runs `Evaluator.evaluate_split` over the 8
+val images (scale 1, no flip, batch 4) and `evaluate_results`. The JAX
+gate's schedules: rrnet 1600 steps with stage 2 gated off for the first
+steps // 4, scored for three decodes of the same weights (the full
+stage-2 re-regression, the stage-1 ROIs alone, all-zero deltas);
+centernet 400 steps, one decode. `seed=S` among the overrides draws
+other weights, permutations and samples; the set stays seed 219.
+
+Adds the run's row (APs, the train time and the share of it the step
+loop spent waiting for batches, the seed, the card) to the rows already
+in `--out` (one a run; a new file holds this run's row alone) and writes
+each family's mean and spread over its runs.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import sys
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from rrnet_torch import config as cfglib
@@ -37,8 +45,11 @@ from rrnet_torch.train import Trainer
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 N_TRAIN, N_VAL, SEED = 32, 8, 219
-DECODES = (("rrnet", "full"), ("stage1_only", "stage1"),
-           ("zero_delta", "zero"))
+DECODES = {"rrnet": (("rrnet", "full"), ("stage1_only", "stage1"),
+                     ("zero_delta", "zero")),
+           "centernet": (("centernet", "full"),)}
+STEPS = {"rrnet": 1600, "centernet": 400}
+METRICS = ("AP", "AP50", "AP75", "AR")
 
 
 def _card() -> Optional[str]:
@@ -59,13 +70,16 @@ def run(args) -> dict:
     print(f"# {N_TRAIN}+{N_VAL} synthetic images under {args.dir} in "
           f"{synth_s:.1f} s", file=sys.stderr)
 
+    family = args.family
+    steps = args.steps or STEPS[family]
     overrides = [f"data_root={args.dir}", f"train.batch_size={args.batch}",
-                 f"train.iter_num={args.steps}", "val.scales=(1.0,)",
-                 "val.flip_tta=False",
-                 # the reference gates stage 2 off for the first 2000 of
-                 # 100k steps; scaled to this schedule
-                 f"train.stage2_warmup_steps={args.steps // 4}"]
-    cfg = cfglib.apply_overrides(cfglib.PRESETS["rrnet"](),
+                 f"train.iter_num={steps}", "val.scales=(1.0,)",
+                 "val.flip_tta=False"]
+    if family == "rrnet":
+        # the reference gates stage 2 off for the first 2000 of 100k
+        # steps; scaled to this schedule
+        overrides.append(f"train.stage2_warmup_steps={steps // 4}")
+    cfg = cfglib.apply_overrides(cfglib.PRESETS[family](),
                                  overrides + list(args.overrides))
     trainer = Trainer(cfg, device=args.device)
     state = trainer.init_state()
@@ -79,7 +93,7 @@ def run(args) -> dict:
     wait = 0.0
     metrics = None
     try:
-        for step in range(args.steps):
+        for step in range(steps):
             tw = time.perf_counter()
             batch = loader.get_batch()
             wait += time.perf_counter() - tw
@@ -92,7 +106,7 @@ def run(args) -> dict:
     finally:
         loader.close()
     train_s = time.perf_counter() - t0
-    print(f"# trained {args.steps} steps in {train_s:.1f} s, {wait:.1f} s "
+    print(f"# trained {steps} steps in {train_s:.1f} s, {wait:.1f} s "
           f"waiting for batches, {train_loader.skips} loader skips (final "
           f"loss {total:.4f})", file=sys.stderr)
 
@@ -100,14 +114,17 @@ def run(args) -> dict:
     model.load_state_dict(state.state_dict())
     val_loader = ValLoader(cfg, split="val")
     gt_dir = os.path.join(args.dir, "val", "annotations")
-    entry = {"family": "rrnet",
-             "train": {"steps": args.steps, "batch": args.batch,
-                       "stage2_warmup_steps": args.steps // 4,
+    entry = {"family": family, "seed": cfg.seed,
+             "device": {"type": trainer.device.type, "card": _card(),
+                        "torch": torch.__version__},
+             "train": {"steps": steps, "batch": args.batch,
                        "final_loss": total, "wall_s": train_s,
                        "wait_for_batches_s": wait,
                        "loader_share": wait / train_s,
                        "loader_skips": train_loader.skips}}
-    for tag, decode in DECODES:
+    if family == "rrnet":
+        entry["train"]["stage2_warmup_steps"] = steps // 4
+    for tag, decode in DECODES[family]:
         ev = Evaluator(cfg, model, device=trainer.device,
                        stage2_decode=decode)
         result_dir = ev.evaluate_split(
@@ -118,7 +135,7 @@ def run(args) -> dict:
                "AP75": scores["ap75"], "AR": scores["ar"]}
         print(f"# {tag}: " + " ".join(f"{k}={v:.4f}" for k, v in row.items()),
               file=sys.stderr)
-        if tag == "rrnet":
+        if tag == family:
             entry.update(row)
         else:
             entry[tag] = row
@@ -128,18 +145,57 @@ def run(args) -> dict:
                     "generator": "rrnet_torch/data/synth.py",
                     "seconds": synth_s},
         "eval_protocol": "single scale, no flip TTA, bucketed batch 4",
-        "device": {"type": trainer.device.type, "card": _card(),
-                   "torch": torch.__version__},
         "families": [entry],
     }
+
+
+def summarize(entries) -> dict:
+    """{family: {"seeds": [...], decode: {metric: {mean, min, max,
+    spread, std}}}} over the rows (runs) of each family that has two or
+    more (std: the sample standard deviation; a seed run twice counts
+    twice)."""
+    out = {}
+    for family, decodes in DECODES.items():
+        rows = [e for e in entries if e["family"] == family]
+        if len(rows) < 2:
+            continue
+        fam = {"seeds": [e["seed"] for e in rows]}
+        for tag, _ in decodes:
+            picked = [e if tag == family else e[tag] for e in rows]
+            stats = {}
+            for k in METRICS:
+                v = np.asarray([p[k] for p in picked], np.float64)
+                stats[k] = {"mean": float(v.mean()), "min": float(v.min()),
+                            "max": float(v.max()),
+                            "spread": float(v.max() - v.min()),
+                            "std": float(v.std(ddof=1))}
+            fam[tag] = stats
+        out[family] = fam
+    return out
+
+
+def merge(result: dict, path: str) -> dict:
+    """`result`'s rows added to the gate file at `path` (if there is
+    one), one row a run, sorted by family and seed (stable, so a seed run
+    again follows its earlier run); the file's other keys are kept where
+    `result` has none; then each family's summary over its runs."""
+    old = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            old = json.load(f)
+    rows = sorted(old.get("families", []) + result["families"],
+                  key=lambda e: (list(DECODES).index(e["family"]), e["seed"]))
+    return {**old, **result, "families": rows, "over_seeds": summarize(rows)}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(
         prog="python -m rrnet_torch.scripts.synth_gate",
-        description="Train the rrnet preset on the synthetic set and score "
-                    "its val split.")
-    ap.add_argument("--steps", type=int, default=1600)
+        description="Train a preset on the synthetic set and score its val "
+                    "split.")
+    ap.add_argument("--family", default="rrnet", choices=sorted(DECODES))
+    ap.add_argument("--steps", type=int, default=None,
+                    help="train steps (default: rrnet 1600, centernet 400)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--dir", default=os.path.join(REPO, "build", "rrnet_synth"),
                     help="where the synthetic set and results are written")
@@ -147,7 +203,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default="cuda", help="'cuda' or 'cpu'")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = ap.parse_args(argv)
-    result = run(args)
+    result = merge(run(args), args.out)
     text = json.dumps(result, indent=1)
     print(text)
     with open(args.out, "w") as f:

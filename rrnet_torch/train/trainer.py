@@ -1,4 +1,4 @@
-"""Trainer: the train step of the flagship RRNet on one card (port of
+"""Trainer: the train step of RRNet and CenterNet on one card (port of
 `rrnet_tpu/train/trainer.py:33-217`).
 
     trainer = Trainer(cfg)                       # device="cuda"
@@ -16,8 +16,8 @@ numpy arrays or tensors; they are moved to the trainer's device.
 
 One step: normalise on the device, the model in train mode on the state
 (`torch.func.functional_call`, batch statistics), the targets rendered
-on the device, the losses (total = hm + wh_weight * wh + off + s2, s2
-gated off for the first `train.stage2_warmup_steps` steps), the
+on the device, the losses (total = hm + wh_weight * wh + off, plus for
+RRNet s2, gated off for the first `train.stage2_warmup_steps` steps), the
 gradients, then the fused Adam with the exact skip: a non-finite total
 leaves params, moments, counts, step and BN running statistics as they
 were (the reference skips a step on CUDA OOM, rrnet_operator.py:120-126),
@@ -48,7 +48,7 @@ class Trainer:
 
     def __init__(self, cfg: Config,
                  device: Union[str, torch.device] = "cuda"):
-        if cfg.model.name != "rrnet":
+        if cfg.model.name not in ("rrnet", "centernet"):
             raise NotImplementedError(
                 f"the {cfg.model.name!r} train step is not ported yet")
         self.cfg = cfg
@@ -94,6 +94,11 @@ class Trainer:
         targets = criterions.centernet_targets(
             annos, valid, self.feat_shape, cfg.train.scale_factor,
             cfg.num_classes)
+        if cfg.model.name == "centernet":
+            hms, whs, offs = outs
+            ld = criterions.centernet_criterion(hms, whs, offs, targets)
+            total = ld["hm"] + cfg.train.wh_weight * ld["wh"] + ld["off"]
+            return total, ld
         ld = criterions.centernet_criterion(outs.hms, outs.whs,
                                             outs.offsets, targets)
         s2 = criterions.rrnet_stage2_criterion(outs, annos, valid,
@@ -126,7 +131,8 @@ class Trainer:
     def train_step(self, state: TrainState, batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update, IN PLACE on `state` (returned). metrics: hm, wh,
-        off, s2, total and skipped, 0-dim f32 tensors on the device."""
+        off, (RRNet) s2, total and skipped, 0-dim f32 tensors on the
+        device."""
         old_stats = state.flat_stats.clone()
         total, grads, ld = self._value_grads(state, batch)
         good = torch.isfinite(total)

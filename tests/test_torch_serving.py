@@ -9,12 +9,14 @@ boxes within 1e-3 px, scores within 1e-4. The yuv420 case hides OpenCV,
 so that both sides pack with the same numpy code.
 """
 
+import dataclasses
 import sys
 
 import numpy as np
 import pytest
 
 from rrnet_tpu.serving import Predictor as JPredictor
+from rrnet_torch.evallib.infer import Evaluator as TEvaluator
 from rrnet_torch.serving import Predictor as TPredictor
 from tests.test_torch_rrnet import tiny_pair, configs
 
@@ -72,8 +74,17 @@ def test_predictor_surface(pair):
 
 
 def test_unported_eval_protocol_raises(pair):
+    """deployment=False serves the preset's whole eval protocol (its six
+    scales), as the Evaluator does; a family not ported yet (RetinaNet)
+    still raises."""
     _, _, tm, _, tc = pair
     multi = TPredictor(tc, tm, device="cpu", bucket_multiple=64,
                        deployment=False)
+    assert multi.cfg.val.scales == tc.val.scales and len(tc.val.scales) == 6
+    img = requests()[0]
+    want = TEvaluator(tc, tm, device="cpu", bucket_multiple=64).predict(img)
+    np.testing.assert_array_equal(multi.predict(img), want)
+    assert len(want) > 0
     with pytest.raises(NotImplementedError):
-        multi.predict(requests()[0])
+        TEvaluator(tc.replace(model=dataclasses.replace(
+            tc.model, name="retinanet")), tm, device="cpu")
