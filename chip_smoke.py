@@ -21,10 +21,12 @@ Phases (any failure exits non-zero before the result line):
      with the busiest class's chain length per image beside its time; hard
      NMS against the plain fixpoint; the DCN kernels against both bound
      routes (f32 on the CUDA cores, 3xTF32 on the tensor cores), the
-     backward's two kernels apart. `--before DIR` builds another version
-     of the sources that DIR holds (the DCN trio, `soft_nms_classes.cu`,
-     `soft_nms.cu`) and times it beside this checkout's, in turns
-     ("before/after" lines);
+     backward's two kernels apart; hard NMS also at RetinaNet's shape
+     (B=4, K=1000, class-agnostic, thr 0.3, +1 extents, valid = score >
+     0.1, decoded anchors crowded in one window). `--before DIR` builds
+     another version of the sources that DIR holds (the DCN trio,
+     `soft_nms_classes.cu`, `soft_nms.cu`) and times it beside this
+     checkout's, in turns ("before/after" lines);
   4. small-input reference: a tiny RRNet (hard NMS and soft-NMS), a tiny
      RRNet train step (soft-NMS; hard NMS with the card's stage 2 fed the
      CPU's ROIs bit for bit) and trires50deform at 64x64, all f32, on the
@@ -77,10 +79,22 @@ Phases (any failure exits non-zero before the result line):
      with flip TTA (fused against unfused: recorded in bf16, held within
      1e-2 px and 1e-4 in f32); the device preprocess at
      scale 1.5 against the CPU's; CenterNet at its preset (train steps at
-     4x512x512, then six scales with the fused flip, images/s).
+     4x512x512, then six scales with the fused flip, images/s);
+ 10. retinanet path: the `retinanet` preset at full width (ResNet-50,
+     FPN-256, both towers, bf16, seeded weights): `Predictor` answers 16
+     single 765x1360 requests and a batch of 4 (p50 / p90, one hard-NMS
+     launch a forward, one request's keep mask against the plain
+     fixpoint, decode + NMS under the sync debug mode "error", hard NMS
+     timed on the batch's own candidates); `Trainer` takes 10 steps on one
+     seeded batch of 4 uint8 512x512 crops (finite, falling; step p50,
+     peak memory) and an inf batch that leaves the state bitwise;
+     `evaluate_split` at the preset's protocol (scale 1, no flip, no host
+     merge) over 8 frames at batch 4 (images/s); a resnet10 RetinaNet at
+     2x3x64x64 f32 on the card against the CPU (outputs, rows, one train
+     step's losses).
 Each path runs with every launch count set to 0 just before it and read
-just after. Then JSON lines hold the data path's and the eval protocol's
-numbers, one lists every kernel,
+just after. Then JSON lines hold the data path's, the eval protocol's
+and the retinanet path's numbers, one lists every kernel,
 and the last line is the result. It exits non-zero without a result when no CUDA device is
 present.
 """
@@ -727,6 +741,9 @@ def check_hard_nms(torch, hn, rng, card):
           "bytes); no PyTorch call computes NMS (torchvision is not "
           "installed), so library_ms is null; " + ", ".join(
               f"{k} {v:.4f}" for k, v in sorted(split.items())), flush=True)
+    rb, rs, rv = retina_candidates_like(rng, 4, 1000)
+    retina = time_hard_nms_retina(torch, hn, t(rb), t(rs), t(rv), card,
+                                  "RetinaNet shape, B=4 K=1000")
     return {"name": "hard_nms", "route": "cuda",
             "source": "rrnet_torch/csrc/hard_nms.cu",
             "replaces": "rrnet_tpu/ops/nms.py:46 (not a TPU kernel: the "
@@ -735,7 +752,80 @@ def check_hard_nms(torch, hn, rng, card):
             "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
             "library_ms": None, "device_ms": sum(split.values()),
-            "kernels_device_ms": kernels}
+            "kernels_device_ms": kernels, "retinanet_k1000": retina}
+
+
+def retina_candidates_like(rng, b, k, bucket=(768, 1408)):
+    """RetinaNet's NMS input at its shape: per image k stride-8 anchors of
+    the bucket drawn from one 96x96 px window (1296 anchors there, so the
+    boxes crowd as the decode's top k do around objects), decoded with
+    standardised deltas drawn from N(0, 0.5), uniform scores, and
+    valid = score > 0.1."""
+    from rrnet_torch.models.anchors import anchors_for_shape
+    from rrnet_torch.models.retinanet import DELTA_STD, SCORE_THRESHOLD
+    fh, fw = bucket[0] // 8, bucket[1] // 8
+    level3 = anchors_for_shape(bucket)[:fh * fw * 9].reshape(fh, fw, 9, 4)
+    boxes = np.empty((b, k, 4), np.float32)
+    for i in range(b):
+        y0, x0 = rng.randint(0, fh - 12), rng.randint(0, fw - 12)
+        win = level3[y0:y0 + 12, x0:x0 + 12].reshape(-1, 4)
+        a = win[rng.choice(len(win), k, replace=False)]
+        d = rng.randn(k, 4).astype(np.float32) * 0.5
+        aw, ah = a[:, 2] - a[:, 0], a[:, 3] - a[:, 1]
+        cx = a[:, 0] + 0.5 * aw + d[:, 0] * DELTA_STD[0] * aw
+        cy = a[:, 1] + 0.5 * ah + d[:, 1] * DELTA_STD[1] * ah
+        w = np.exp(d[:, 2] * DELTA_STD[2]) * aw
+        h = np.exp(d[:, 3] * DELTA_STD[3]) * ah
+        boxes[i] = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                            -1)
+    scores = rng.rand(b, k).astype(np.float32)
+    return boxes, scores, scores > SCORE_THRESHOLD
+
+
+def time_hard_nms_retina(torch, hn, boxes, scores, valid, card, label):
+    """RetinaNet's class-agnostic hard NMS (thr 0.3, +1 extents, valid
+    mask) on these (B, K) candidates: the kernel's keep mask bit-equal to
+    the plain fixpoint, then both timed (the wrapper also split into its
+    device kernels by the profiler), beside the bound of the pairs of
+    valid candidates (HARD_NMS_OPS_PER_PAIR each) and the bytes of boxes,
+    scores, valid and keep. Returns the numbers."""
+    from rrnet_torch.models.retinanet import NMS_IOU
+    args = (boxes, scores, NMS_IOU, valid)
+    got = hn.hard_nms(*args, plus_one=True)
+    torch.cuda.synchronize()
+    ref = hn.hard_nms_reference(*args, plus_one=True)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"hard_nms kernel differs from the plain "
+                             f"fixpoint ({label}): "
+                             f"{int((got != ref).sum())} boxes")
+    ms = cuda_ms(lambda: hn.hard_nms(*args, plus_one=True), reps=50)
+    split = device_split(torch, lambda: hn.hard_nms(*args, plus_one=True),
+                         reps=20)
+    kernels = sum(v for k, v in split.items() if "hard_nms_" in k)
+    plain_ms = cuda_ms(lambda: hn.hard_nms_reference(*args, plus_one=True),
+                       reps=3, warm=1)
+    bsz, kk = scores.shape
+    n_valid = valid.sum(1).double()
+    pairs = float((n_valid * (n_valid - 1) / 2).sum())
+    ops = pairs * HARD_NMS_OPS_PER_PAIR
+    nbytes = bsz * kk * (16 + 4 + 1 + 1)
+    bound_ops = ops / F32_FLOPS_PER_S * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"shape": [bsz, kk], "valid": int(valid.sum()),
+           "kept": int(got.sum()), "ms": ms, "plain_ms": plain_ms,
+           "device_ms": sum(split.values()), "kernels_device_ms": kernels,
+           "bound_ms": max(bound_ops, bound_bytes),
+           "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+    print(f"  hard_nms {label}: keep bit-equal to the plain fixpoint "
+          f"({out['kept']} kept of {out['valid']} valid, B={bsz} K={kk}, "
+          f"class-agnostic, thr {NMS_IOU}, +1); on {card}: {ms:.4f} ms a "
+          f"call (device {out['device_ms']:.4f} ms: the mask and scan "
+          f"kernels {kernels:.4f}, the score mask, sort and the rest "
+          f"{out['device_ms'] - kernels:.4f}), plain fixpoint "
+          f"{plain_ms:.3f} ms, bound "
+          f"{out['bound_ms']:.6f} ms ({out['bound_by']}: {ops:.4g} ops over "
+          f"{pairs:.0f} valid pairs, {nbytes} bytes)", flush=True)
+    return out
 
 
 def dcn_inputs(torch, rng, b, h, w, cin=256, cout=256, g=4, stride=1,
@@ -1341,6 +1431,13 @@ def check_small_trident(torch):
           flush=True)
 
 
+def state_bits(torch, state):
+    """A copy of every tensor of a train state, floats as their int32
+    bits, for a bitwise comparison."""
+    return {k: (v.view(torch.int32) if v.is_floating_point() else v).clone()
+            for k, v in state.tensors().items()}
+
+
 def check_detections(dets, max_rows, n_cls):
     if dets.ndim != 2 or dets.shape[1] != 6 or not 0 < len(dets) <= max_rows:
         raise AssertionError(f"bad detections shape {dets.shape}")
@@ -1795,15 +1892,12 @@ def run_train_path(torch, sn, hn, card):
     same_soft = [torch.equal(a, b) for a, b in zip(by_route[True], by_route[False])]
 
     # a batch of inf pixels: skipped, and the state bitwise as it was
-    def bits():
-        return {k: (v.view(torch.int32) if v.is_floating_point() else v)
-                .clone() for k, v in state.tensors().items()}
-    before = bits()
+    before = state_bits(torch, state)
     bad = dict(batch, images=np.full(batch["images"].shape, np.inf,
                                      np.float32))
     state, m_bad = trainer.train_step(state, bad)
     torch.cuda.synchronize()
-    after = bits()
+    after = state_bits(torch, state)
     hard, soft, classes = (hn.launches, sn.launches,
                            sn.classes_launches)          # read just after
     dcn = tdc.fwd_launches + tdc.bwd_launches
@@ -2345,6 +2439,286 @@ def run_eval_protocol(torch, hn, sn, card):
     return entry, launches
 
 
+def check_small_retinanet(torch):
+    """A resnet10 RetinaNet, f32, at 2x3x64x64: the card against the CPU
+    on the same weights (the path the CPU tests hold to the JAX package).
+    Outputs within 1e-4; the decoded rows (top 1000 of 756 anchors, hard
+    NMS) matched one to one within 1e-3 px and 1e-5 (the cls out-conv is
+    scaled by 10 to spread the scores, as in the CPU test); one train
+    step's losses within 1e-4."""
+    from rrnet_torch import config as cfglib
+    from rrnet_torch.models import build_model, retinanet
+    from rrnet_torch.models.anchors import anchors_for_shape
+    from rrnet_torch.profile_train import synthetic_batch
+    from rrnet_torch.train import Trainer
+
+    cfg = cfglib.retinanet_config(**{
+        "model.backbone": "resnet10", "model.dtype": "float32",
+        "train.crop_size": (64, 64), "train.max_objects": 16})
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        cpu.cls.out.weight.mul_(10.0)
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(4).randn(2, 3, 64, 64)
+                         .astype(np.float32))
+    vhw = torch.tensor([[64, 64], [50, 60]], dtype=torch.int32)
+    anchors = torch.from_numpy(anchors_for_shape((64, 64)).copy())
+    with torch.inference_mode():
+        a = cpu(x)
+        b = gpu(x.cuda())
+        ra = retinanet.decode(*a, anchors, vhw, len(anchors))
+        rb = retinanet.decode(*b, anchors.cuda(), vhw.cuda(), len(anchors))
+    for name, u, v in (("loc", a[0], b[0]), ("cls", a[1], b[1])):
+        torch.testing.assert_close(v.cpu(), u, atol=1e-4, rtol=0,
+                                   msg=f"resnet10 RetinaNet {name}")
+    gaps = []
+    for u, v in zip(ra.numpy().astype(np.float64),
+                    rb.cpu().numpy().astype(np.float64)):
+        u, v = u[u[:, 4] >= 0], v[v[:, 4] >= 0]
+        ok, box_gap, score_gap, matched = match_rows(v, u, 1e-3, 1e-5)
+        if not ok:
+            raise AssertionError(f"resnet10 RetinaNet rows cuda vs cpu: "
+                                 f"{matched} of {len(u)} / {len(v)} matched")
+        gaps.append((len(u), box_gap, score_gap))
+
+    trainers = [Trainer(cfg, device=d) for d in ("cpu", "cuda")]
+    state = trainers[0].init_state(generator=torch.Generator().manual_seed(5))
+    batch = synthetic_batch(np.random.RandomState(6), b=2, hw=(64, 64),
+                            max_objects=16, n_valid=(4, 12),
+                            size=(8.0, 40.0))
+    metrics = []
+    for tr, st in zip(trainers, (state, state.to("cuda"))):
+        _, m = tr.train_step(st, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    worst = max(abs(metrics[1][k] - metrics[0][k])
+                / max(abs(metrics[0][k]), 1e-30) for k in metrics[0])
+    if not worst <= 1e-4 or metrics[0]["reg"] <= 0:
+        raise AssertionError(f"resnet10 RetinaNet train step cuda vs cpu: "
+                             f"{metrics}")
+    print(f"  resnet10 RetinaNet f32 2x3x64x64 cuda == cpu: loc/cls within "
+          f"1e-4; rows (count, box gap px, score gap) {gaps}; one train "
+          f"step's losses within {worst:.3g} ({metrics[0]})", flush=True)
+
+
+def run_retinanet_path(torch, sn, hn, card):
+    """Phase 10: the `retinanet` preset at full width (ResNet-50, FPN-256,
+    both towers, bf16, seeded random weights). Serving: `Predictor`
+    answers single 765x1360 requests and one batch of 4 in the 768x1408
+    bucket (p50 / p90), one hard-NMS launch a forward; one request's keep
+    mask redone by the plain fixpoint on the same candidates, and the
+    decode with its NMS run once under `torch.cuda.set_sync_debug_mode(
+    "error")`; `hard_nms` timed on the batch's own candidates. Training:
+    `Trainer` takes 10 steps on one seeded batch of 4 uint8 512x512 crops
+    (finite, falling total; step p50, peak memory), then an inf batch
+    that must leave the state bitwise as it was. Evaluation:
+    `evaluate_split` at the preset's protocol (scale 1, no flip, no host
+    merge) over 8 frames of 765x1360 at batch 4 (images/s). Then the
+    small-input reference. Each part runs with every launch count set to
+    0 just before it and read just after. Returns (the JSON "retinanet"
+    entry, hard_nms launches of the serving run)."""
+    import tempfile
+    from rrnet_torch import config as cfglib
+    from rrnet_torch.evallib.infer import Evaluator
+    from rrnet_torch.models import build_model, retinanet
+    from rrnet_torch.ops import deform_conv as tdc
+    from rrnet_torch.profile_train import synthetic_batch
+    from rrnet_torch.serving import Predictor
+    from rrnet_torch.train import Trainer
+
+    def zero_counts():
+        hn.launches = sn.launches = sn.classes_launches = 0
+        tdc.fwd_launches = tdc.bwd_launches = 0
+
+    def read_counts():
+        return {"hard_nms": hn.launches, "soft_nms": sn.launches,
+                "soft_nms_classes": sn.classes_launches,
+                "dcn": tdc.fwd_launches + tdc.bwd_launches}
+
+    cfg = cfglib.retinanet_config()
+    entry = {}
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(cfg.seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  retinanet preset: {cfg.model.backbone}, FPN "
+          f"{cfg.model.fpn_channels}, {cfg.model.dtype}, {n_params} params, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    if n_params != 30_617_534:
+        raise AssertionError(f"retinanet preset has {n_params} params")
+
+    # --- serving
+    pred = Predictor(cfg, model, device="cuda")
+    ev = pred._ev
+    forwards = []
+    hook = model.register_forward_hook(
+        lambda module, args, out: forwards.append(out))
+    frames = demo_frames(16)
+    images = [f["image"] for f in frames]
+    pred.warmup(((765, 1360),), batch_sizes=(1, 4))
+    torch.cuda.synchronize()
+    forwards.clear()
+    zero_counts()
+    ms = []
+    outs = []
+    for im in images:
+        t = time.perf_counter()
+        outs.append(pred.predict(im))
+        ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    outs += pred.predict_batch(images[:4])
+    batch_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    counts = read_counts()                                   # just after
+    hook.remove()
+    n_fwd = len(forwards)
+    if counts != {"hard_nms": n_fwd, "soft_nms": 0, "soft_nms_classes": 0,
+                  "dcn": 0} or n_fwd != len(images) + 1:
+        raise AssertionError(f"retinanet serving: launches {counts} in "
+                             f"{n_fwd} forwards (want one hard_nms each)")
+    for d in outs:
+        check_detections(d, 1000, cfg.num_classes)
+    p50, p90 = (float(np.percentile(ms, q)) for q in (50, 90))
+    entry["serve"] = {"p50_ms": p50, "p90_ms": p90, "batch4_ms": batch_ms,
+                      "requests": len(ms), "hard_nms_launches": counts[
+                          "hard_nms"], "rows": [len(d) for d in outs]}
+    print(f"  retinanet serving on {card}: {len(ms)} single 765x1360 "
+          f"requests p50 {p50:.2f} ms, p90 {p90:.2f} ms (min {min(ms):.2f}, "
+          f"max {max(ms):.2f}); a batch of 4 {batch_ms:.2f} ms; hard_nms "
+          f"launches {counts['hard_nms']} in {n_fwd} forwards; rows per "
+          f"request {[len(d) for d in outs[:4]]}...", flush=True)
+
+    # one request's candidates: the kernel's keep mask against the plain
+    # fixpoint, and decode + NMS under the sync debug mode
+    staged = ev._upload([images[0]])
+    with torch.inference_mode():
+        x, vhw = ev._preprocess(staged, staged.bucket, False)
+        loc, cls = model(x)
+        anchors = ev.anchors_for(tuple(x.shape[-2:]))
+        topk = min(4 * ev.decode_topk, anchors.shape[0])
+        c = retinanet.candidates(loc, cls, anchors, vhw, topk)
+        keep = retinanet.nms(c)
+        torch.cuda.synchronize()
+        ref = hn.hard_nms_reference(c.boxes, c.scores, retinanet.NMS_IOU,
+                                    c.valid, plus_one=True)
+        if not torch.equal(keep, ref):
+            raise AssertionError(f"retinanet request: hard_nms keep differs "
+                                 f"from the plain fixpoint in "
+                                 f"{int((keep != ref).sum())} of {topk}")
+        rows = int((keep & c.valid).sum())
+        if rows != len(outs[0]):
+            raise AssertionError(f"retinanet request: {rows} kept rows, the "
+                                 f"Predictor returned {len(outs[0])}")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            packed = retinanet.decode(loc, cls, anchors, vhw, topk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if int((packed[..., 4] >= 0).sum()) != rows:
+            raise AssertionError("retinanet decode under the sync debug "
+                                 "mode gave other rows")
+    print(f"  retinanet request: {topk} candidates of {anchors.shape[0]} "
+          f"anchors, {int(c.valid.sum())} valid, {rows} kept; the kernel's "
+          f"keep mask bit-equal to the plain fixpoint; decode + NMS ran "
+          f"under set_sync_debug_mode('error') with no host sync", flush=True)
+
+    # the batch of 4's own candidates: hard_nms timed at RetinaNet's shape
+    staged = ev._upload(images[:4])
+    with torch.inference_mode():
+        x, vhw = ev._preprocess(staged, staged.bucket, False)
+        c = retinanet.candidates(*model(x), anchors, vhw, topk)
+        entry["hard_nms_batch4"] = time_hard_nms_retina(
+            torch, hn, c.boxes, c.scores, c.valid, card,
+            "on a served batch of 4's own candidates")
+    del pred, ev
+
+    # --- training
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(generator=torch.Generator().manual_seed(
+        cfg.seed))
+    batch = synthetic_batch(np.random.RandomState(cfg.seed))
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+
+    before = state_bits(torch, state)
+    bad = dict(batch, images=np.full(batch["images"].shape, np.inf,
+                                     np.float32))
+    state, m_bad = trainer.train_step(state, bad)
+    torch.cuda.synchronize()
+    after = state_bits(torch, state)
+    counts = read_counts()                                   # just after
+    if any(counts.values()):
+        raise AssertionError(f"retinanet train steps launched {counts}")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"non-finite retinanet losses: {metrics}")
+    totals = [m["total"] for m in metrics]
+    if not totals[-1] < totals[0] or any(m["skipped"] for m in metrics):
+        raise AssertionError(f"retinanet train total did not fall: {totals}")
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if float(m_bad["skipped"]) != 1.0 or changed:
+        raise AssertionError(f"retinanet inf batch: skipped "
+                             f"{float(m_bad['skipped'])}, state changed in "
+                             f"{changed}")
+    timed = ms[2:]
+    entry["train"] = {"step_p50_ms": float(np.percentile(timed, 50)),
+                      "max_memory_allocated_gib": peak / 2**30,
+                      "totals": totals, "step_ms": ms}
+    print(f"  retinanet train step 4x512x512 {cfg.model.dtype} on {card}: p50 "
+          f"{entry['train']['step_p50_ms']:.2f} ms (steps 3-10; "
+          f"{[round(x, 1) for x in ms]}); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; (cls, reg, total) per step "
+          + "; ".join(f"{m['cls']:.4f} {m['reg']:.4f} {m['total']:.4f}"
+                      for m in metrics)
+          + "; inf batch skipped with the state bitwise unchanged",
+          flush=True)
+
+    # --- evaluation at the preset's protocol
+    model = trainer.model.eval()
+    model.load_state_dict(state.state_dict())
+    ev = Evaluator(cfg, model, device="cuda")
+    tmp = tempfile.TemporaryDirectory()
+    ev.evaluate_split(frames[:4], result_dir=os.path.join(tmp.name, "w"),
+                      verbose=False)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out_dir = ev.evaluate_split(frames[:8], result_dir=os.path.join(
+        tmp.name, "rt"), batch_size=4, verbose=False)
+    secs = time.perf_counter() - t0
+    counts = read_counts()                                   # just after
+    n_rows = 0
+    for name in os.listdir(out_dir):
+        with open(os.path.join(out_dir, name)) as f:
+            n_rows += len(f.readlines())
+    tmp.cleanup()
+    if counts != {"hard_nms": 2, "soft_nms": 0, "soft_nms_classes": 0,
+                  "dcn": 0} or n_rows == 0:
+        raise AssertionError(f"retinanet eval: launches {counts} (want 2 "
+                             f"hard_nms), {n_rows} rows written")
+    entry["eval"] = {"images_per_s": 8 / secs, "hard_nms_launches": 2,
+                     "rows_written": n_rows}
+    print(f"  retinanet preset protocol (scale 1, no flip, no host merge), "
+          f"8 frames 765x1360 at batch 4 on {card}: {8 / secs:.2f} images/s "
+          f"({secs * 1e3:.1f} ms, files written); hard_nms launches 2 in 2 "
+          f"batches; {n_rows} rows written", flush=True)
+    del trainer, state, model, ev
+
+    check_small_retinanet(torch)
+    return entry, entry["serve"]["hard_nms_launches"]
+
+
 def main(argv=None) -> int:
     import argparse
     from pathlib import Path
@@ -2450,8 +2824,15 @@ def main(argv=None) -> int:
         torch, hn, sn, card)
     print(f"  phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    phase("retinanet path")
+    t0 = time.perf_counter()
+    retina, hard["retinanet_launches"] = run_retinanet_path(torch, sn, hn,
+                                                            card)
+    print(f"  phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(json.dumps({"data": data}), flush=True)
     print(json.dumps({"eval_protocol": protocol}), flush=True)
+    print(json.dumps({"retinanet": retina}), flush=True)
     print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard]}),
           flush=True)
     print(card, flush=True)

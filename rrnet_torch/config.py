@@ -143,7 +143,26 @@ def centernet_config(**overrides: Any) -> Config:
     return cfg
 
 
-PRESETS = {"rrnet": rrnet_config, "centernet": centernet_config}
+def retinanet_config(**overrides: Any) -> Config:
+    """The RetinaNet preset (reference configs/retinanet_config.py, its
+    live parts): ResNet-50 + FPN, lr 1e-4, no road map and no FillDuck in
+    the train transforms, one eval scale, no SyncBN, and
+    `val.auto_test=False`, which the Evaluator does not read for this
+    family: its decode already NMS'd on the device, so no host merge."""
+    cfg = Config(
+        log_prefix="RetinaNet",
+        train=TrainConfig(lr=1e-4, with_road=False, fill_duck=False),
+        model=ModelConfig(name="retinanet", backbone="resnet50",
+                          num_stacks=1, sync_bn=False),
+        val=ValConfig(scales=(1.0,), auto_test=False),
+    )
+    for k, v in overrides.items():
+        cfg = set_by_path(cfg, k, v)
+    return cfg
+
+
+PRESETS = {"rrnet": rrnet_config, "centernet": centernet_config,
+           "retinanet": retinanet_config}
 
 
 def set_by_path(cfg: Any, path: str, value: Any) -> Any:

@@ -1,5 +1,5 @@
 """Multi-scale, flip-TTA inference over full images with shape
-bucketing, RRNet and CenterNet branches (port of
+bucketing, RRNet, CenterNet and RetinaNet branches (port of
 `rrnet_tpu/evallib/infer.py:79-678`).
 
 One host->device transfer per batch, as uint8: images are padded on the
@@ -17,6 +17,9 @@ halves as one 2B forward (`fuse_flip=True`, the default) or as two.
 `collect` undoes the flip and the scale, concatenates each image's rows
 over the programs and, for `val.auto_test=False`, merges them on the
 host: score filter, then per-class gaussian soft-NMS (`host_nms`).
+RetinaNet's rows are score-filtered and hard-NMS'd on the device, and
+the reference applies no host NMS after them
+(retinanet_operator.py:250-258), so they are never merged.
 `evaluate_split` runs a whole split through a three-stage pipeline
 (upload on a thread, compute, collect) and writes VisDrone result txts.
 """
@@ -36,6 +39,9 @@ from rrnet_torch.config import Config
 from rrnet_torch.data.yuv420 import pack_yuv420, unpack_yuv420_device
 from rrnet_torch.evallib import host_nms
 from rrnet_torch.evallib.writer import save_result
+from rrnet_torch.models import retinanet
+from rrnet_torch.models.anchors import model_anchors
+from rrnet_torch.models.modules import resize_bilinear
 from rrnet_torch.models.rrnet import mask_heatmap_extent
 from rrnet_torch.ops.box import decode_boxes
 from rrnet_torch.ops.heatmap import topk_decode
@@ -81,22 +87,23 @@ def scaled_valid_hw(valid_hw: torch.Tensor, bucket: Tuple[int, int],
 
 
 class Evaluator:
-    """Runs a trained RRNet or CenterNet over full images and produces
-    (N, 6) [x, y, w, h, score, cls(1-based)] detections in original
-    pixels, with the preset's eval protocol (`cfg.val`: scales, flip TTA,
-    auto_test)."""
+    """Runs a trained RRNet, CenterNet or RetinaNet over full images and
+    produces (N, 6) [x, y, w, h, score, cls(1-based)] detections in
+    original pixels, with the preset's eval protocol (`cfg.val`: scales,
+    flip TTA, auto_test)."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module, *,
                  device: Union[str, torch.device] = "cuda",
                  bucket_multiple: int = 128, decode_topk: int = 250,
                  fuse_flip: bool = True, stage2_decode: str = "full"):
-        """model: the port's RRNet or CenterNet (moved to `device`, set
-        to eval). decode_topk: CenterNet's top-k per image (RRNet takes
-        `model.topk`). fuse_flip: flip TTA as one forward of 2B images
-        (True) or two of B. stage2_decode (RRNet): "full" applies the
-        stage-2 deltas, "stage1" reports the stage-1 ROIs, "zero" decodes
-        with all-zero deltas."""
-        if cfg.model.name not in ("rrnet", "centernet"):
+        """model: the port's RRNet, CenterNet or RetinaNet (moved to
+        `device`, set to eval). decode_topk: CenterNet's top-k per image;
+        RetinaNet takes 4 * decode_topk anchors (at most all of them) into
+        its NMS; RRNet takes `model.topk`. fuse_flip: flip TTA as one
+        forward of 2B images (True) or two of B. stage2_decode (RRNet):
+        "full" applies the stage-2 deltas, "stage1" reports the stage-1
+        ROIs, "zero" decodes with all-zero deltas."""
+        if cfg.model.name not in ("rrnet", "centernet", "retinanet"):
             raise NotImplementedError(f"Evaluator for {cfg.model.name!r} "
                                       "is not ported yet")
         if stage2_decode not in ("full", "stage1", "zero"):
@@ -115,6 +122,7 @@ class Evaluator:
         self.std = torch.tensor(cfg.val.std, dtype=torch.float32,
                                 device=self.device)[:, None, None]
         self._tight_cache: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self._anchors: Dict[Tuple[int, int], torch.Tensor] = {}
         self._pad_scratch: Dict[Tuple, np.ndarray] = {}
 
     # ------------------------------------------------------------------
@@ -144,12 +152,7 @@ class Evaluator:
         x = self._normalize(staged) if base is None else base
         bucket = staged.bucket
         if tuple(scaled) != tuple(bucket):
-            # jax.image.resize's "bilinear": half-pixel centres, edges
-            # clamped, and a widened (antialiased) kernel only where an
-            # axis shrinks
-            shrinks = scaled[0] < bucket[0] or scaled[1] < bucket[1]
-            x = F.interpolate(x, size=tuple(scaled), mode="bilinear",
-                              align_corners=False, antialias=shrinks)
+            x = resize_bilinear(x, scaled)
             vhw = scaled_valid_hw(staged.valid_hw, bucket, scaled)
         else:
             vhw = staged.valid_hw       # ceil(v * 1.0) == v: nothing to do
@@ -164,6 +167,12 @@ class Evaluator:
         """Forward + decode -> (B, K, 6) packed rows [x, y, w, h, score,
         cls + 1]; invalid rows get score -1."""
         s = self.cfg.train.scale_factor
+        if self.cfg.model.name == "retinanet":
+            loc, cls = self.model(x)
+            anchors = self.anchors_for(tuple(x.shape[-2:]))
+            return retinanet.decode(loc, cls, anchors, vhw,
+                                    min(4 * self.decode_topk,
+                                        anchors.shape[0]))
         if self.cfg.model.name == "centernet":
             # the last stack only, decoded to the top decode_topk with no
             # peak NMS (the reference operator's transform_bbox)
@@ -191,6 +200,15 @@ class Evaluator:
         score = torch.where(outs.roi_valid, outs.roi_scores, -1.0)
         cls = outs.roi_classes.float() + 1.0
         return torch.cat([xywh, score[..., None], cls[..., None]], dim=-1)
+
+    def anchors_for(self, shape: Tuple[int, int]) -> torch.Tensor:
+        """RetinaNet's anchors of an input shape, on the device, made once
+        a shape (the copy is the only host step; a later forward of the
+        shape makes none)."""
+        if shape not in self._anchors:
+            self._anchors[shape] = torch.tensor(
+                model_anchors(self.cfg.model, shape), device=self.device)
+        return self._anchors[shape]
 
     # ------------------------------------------------------------------
     def _upload(self, images) -> StagedBatch:
@@ -275,9 +293,10 @@ class Evaluator:
     def collect(self, handle) -> List[np.ndarray]:
         """Copy a dispatched batch to the host -> per-image (N, 6) rows in
         original pixels, sorted by score (stable); with
-        `val.auto_test=False`, merged on the host first (`merge`)."""
+        `val.auto_test=False`, merged on the host first (`merge`), except
+        for RetinaNet, whose rows the device already NMS'd."""
         rows = self.gather(handle)
-        if self.cfg.val.auto_test:
+        if self.cfg.val.auto_test or self.cfg.model.name == "retinanet":
             return rows
         return [self.merge(pred) for pred in rows]
 

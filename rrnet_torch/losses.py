@@ -6,10 +6,11 @@
     by the positive count, or the raw negative sum when there is none;
   * `reg_l1_loss`: masked L1 at the GT centre indices, divided by the
     mask broadcast over channels (positives x C) + 1e-4;
+  * `focal_loss`: RetinaNet's sigmoid focal loss on logits;
   * `smooth_l1_loss`: torch's smooth-L1.
 
 Integer powers are written as products, in the order XLA's
-`integer_pow` multiplies. The RetinaNet `focal_loss` waits for its model.
+`integer_pow` multiplies.
 """
 
 from __future__ import annotations
@@ -51,6 +52,24 @@ def reg_l1_loss(pred_map: torch.Tensor, mask: torch.Tensor,
     m = mask.to(pred.dtype).expand_as(pred)
     loss = torch.sum(torch.abs(pred * m - target * m))
     return loss / (torch.sum(m) + 1e-4)
+
+
+def focal_loss(cls_logits: torch.Tensor, cls_targets: torch.Tensor,
+               gamma: float = 2.0, alpha: float = 0.75,
+               reduction: str = "sum") -> torch.Tensor:
+    """Sigmoid focal loss (reference modules/loss/functional.py:6-22):
+    cls_logits (..., C), cls_targets the same shape in {1 (pos), 0 (neg)};
+    probabilities clamped to [1e-7, 1 - 1e-7]. Ignored anchors are the
+    caller's to mask in the elementwise ('none') output."""
+    p = torch.sigmoid(cls_logits).clamp(1e-7, 1.0 - 1e-7)
+    is_pos = cls_targets == 1.0
+    alpha_factor = torch.where(is_pos, alpha, 1.0 - alpha)
+    focal_weight = torch.where(is_pos, 1.0 - p, p)
+    focal_weight = alpha_factor * torch.pow(focal_weight, gamma)
+    bce = -(cls_targets * torch.log(p)
+            + (1.0 - cls_targets) * torch.log(1.0 - p))
+    out = focal_weight * bce
+    return out.sum() if reduction == "sum" else out
 
 
 def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Config -> model (port of `rrnet_tpu/models/build.py:16-40`: RRNet and
-CenterNet), and
-name -> backbone for the backbones no ported detector runs yet."""
+"""Config -> model (port of `rrnet_tpu/models/build.py:16-46`: RRNet,
+CenterNet and RetinaNet), and name -> backbone for the backbones no
+ported detector runs."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from rrnet_torch.config import Config
 from rrnet_torch.models.backbones import get_backbone
 from rrnet_torch.models.centernet import CenterNet
 from rrnet_torch.models.layers import dtype_of, init_weights
+from rrnet_torch.models.retinanet import RetinaNet
 from rrnet_torch.models.rrnet import RRNet
 from rrnet_torch.utils.device import resolve_device
 
@@ -21,14 +22,19 @@ def build_model(cfg: Config, device: Union[str, torch.device] = "cuda",
     """The configured detector in eval mode on `device`, its weights drawn
     on the CPU from `generator` (default: seeded with cfg.seed), so one
     seed gives the same weights on every machine. Load trained weights
-    with `load_state_dict` (see utils.from_flax). 'rrnet' and 'centernet'
-    are ported."""
+    with `load_state_dict` (see utils.from_flax). 'rrnet', 'centernet'
+    and 'retinanet' are ported."""
     dev = resolve_device(device)
     m = cfg.model
     if m.name == "centernet":
         model = CenterNet(num_classes=cfg.num_classes,
                           num_stacks=m.num_stacks, backbone=m.backbone,
                           wh_kernel=m.wh_kernel, dtype=dtype_of(m.dtype))
+    elif m.name == "retinanet":
+        n_anchors = len(m.anchor_ratios) * len(m.anchor_scales)
+        model = RetinaNet(num_classes=cfg.num_classes, num_anchors=n_anchors,
+                          backbone=m.backbone, fpn_channels=m.fpn_channels,
+                          dtype=dtype_of(m.dtype))
     elif m.name != "rrnet":
         raise NotImplementedError(f"model {m.name!r} is not ported yet")
     elif m.with_self_attention:

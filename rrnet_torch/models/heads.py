@@ -1,7 +1,8 @@
-"""Detection heads (port of `rrnet_tpu/models/heads.py:28-133`).
+"""Detection heads (port of `rrnet_tpu/models/heads.py:28-151`).
 
 Heads take NCHW features. The stage-1 heads return NHWC maps, the JAX
-package's public layout. Per-stack heads hold one parameter set per stack
+package's public layout; `RetinaNetHead` returns NCHW, which the detector
+flattens. Per-stack heads hold one parameter set per stack
 under the flax scope names (`conv{stack}`, `out{stack}`, `hconv{stack}`,
 `wconv{stack}`).
 """
@@ -105,3 +106,26 @@ class FasterRCNNHead(nn.Module):
         """roi_feat (N, C, 3, 3) -> (N, 4) deltas."""
         x = self.top(roi_feat)
         return self.regressor(x.mean(dim=(-2, -1)))
+
+
+class RetinaNetHead(nn.Module):
+    """Shared conv tower: 4 x (3x3 conv-256 + relu), then a 3x3 out conv
+    to `planes` channels. The JAX package uses flax `nn.Conv` here (not
+    its `Conv2d`): the same kernel/bias leaves, torch's default kernel
+    init and a zero bias, which `Conv2d` also gives. Scopes `conv0..3`,
+    `out`."""
+
+    def __init__(self, planes: int, in_channels: int = 256,
+                 mid_channels: int = 256, dtype=torch.float32):
+        super().__init__()
+        for i in range(4):
+            self.add_module(f"conv{i}", Conv2d(
+                in_channels if i == 0 else mid_channels, mid_channels, 3, 1,
+                1, dtype=dtype))
+        self.out = Conv2d(mid_channels, planes, 3, 1, 1, dtype=dtype)
+
+    def forward(self, x):
+        """x (B, C, H, W) -> (B, planes, H, W)."""
+        for i in range(4):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        return self.out(x)

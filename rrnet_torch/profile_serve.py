@@ -1,17 +1,21 @@
 """Where a Predictor request's time goes on the card.
 
     python -m rrnet_torch.profile_serve [--requests N] [--nms TYPE]
+        [--config rrnet|retinanet]
 
 Serves the flagship `rrnet` preset (full width, bf16, seeded random
 weights) with its stage-1 NMS, hard NMS by default or `--nms soft_nms`,
-on one 765x1360 image at a time, as `chip_smoke.py` does, and prints, as
-medians over N requests:
+or the `retinanet` preset (`--config retinanet`; its decode and hard NMS
+run after the model's forward), on one 765x1360 image at a time, as
+`chip_smoke.py` does, and prints, as medians over N requests:
   * request latency without the profiler, and host staging (pad, pack,
     pinned upload);
   * the device span of the forward and of its parts, from CUDA events
-    around the backbone, the stage-1 heads and the stage-2 head (the
-    rest of the forward is decode, NMS and ROI-align), and the host time
-    to issue the forward;
+    around them (RRNet: the backbone, the stage-1 heads and the stage-2
+    head, the rest of the forward being decode, NMS and ROI-align;
+    RetinaNet: the backbone, the FPN and the two towers over their three
+    levels, and apart from the forward its decode + NMS), and the host
+    time to issue the forward;
   * kernel time per request and per bare forward, from `torch.profiler`:
     the device's busy share of the unprofiled latency, and the gaps
     between kernels inside the forward;
@@ -32,12 +36,10 @@ from rrnet_torch.models import build_model
 from rrnet_torch.serving import Predictor
 
 
-def _part_timers(model):
-    """CUDA event pairs around each timed part of the forward, and the
-    host's perf_counter around the whole forward."""
-    parts = {"forward": model, "backbone": model.backbone, "hm": model.hm,
-             "wh": model.wh, "offset": model.offset,
-             "head_detector": model.head_detector}
+def _part_timers(model, names):
+    """CUDA event pairs around the forward and each of its submodules
+    `names`, and the host's perf_counter around the whole forward."""
+    parts = {"forward": model, **{k: getattr(model, k) for k in names}}
     events = {k: [] for k in parts}
     host = []
     handles = []
@@ -82,12 +84,20 @@ def main(argv=None) -> None:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--nms", choices=("nms", "soft_nms"),
                     default=config.rrnet_config().model.nms_type_for_stage1,
-                    help="stage-1 NMS (default: the preset's)")
+                    help="RRNet's stage-1 NMS (default: the preset's)")
+    ap.add_argument("--config", choices=("rrnet", "retinanet"),
+                    default="rrnet")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
 
-    cfg = config.rrnet_config(**{"model.nms_type_for_stage1": args.nms})
+    retina = args.config == "retinanet"
+    if retina:
+        cfg = config.retinanet_config()
+        names = ("backbone", "fpn", "cls", "loc")
+    else:
+        cfg = config.rrnet_config(**{"model.nms_type_for_stage1": args.nms})
+        names = ("backbone", "hm", "wh", "offset", "head_detector")
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator().manual_seed(cfg.seed))
     pred = Predictor(cfg, model, device="cuda")
@@ -102,7 +112,7 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         stage_s.append(time.perf_counter() - t0)
 
-    events, host_fwd, handles = _part_timers(model)
+    events, host_fwd, handles = _part_timers(model, names)
     lat = []
     for _ in range(n):
         t0 = time.perf_counter()
@@ -111,11 +121,12 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
-    part_ms = {k: float(np.median([a.elapsed_time(b) for a, b in v]))
-               for k, v in events.items()}
-    heads = part_ms["hm"] + part_ms["wh"] + part_ms["offset"]
-    rest = (part_ms["forward"] - part_ms["backbone"] - heads
-            - part_ms["head_detector"])
+    # a part called several times a forward (RetinaNet's towers, once a
+    # level) is summed per forward before the median
+    part_ms = {k: float(np.median(np.reshape(
+        [a.elapsed_time(b) for a, b in v], (n, -1)).sum(1)))
+        for k, v in events.items()}
+    rest = part_ms["forward"] - sum(part_ms[k] for k in names)
     lat_ms = float(np.median(lat)) * 1e3
     stage_ms = float(np.median(stage_s)) * 1e3
     span = part_ms["forward"]
@@ -130,10 +141,12 @@ def main(argv=None) -> None:
     fwd_args, fwd_kwargs = inputs[0]
     with torch.inference_mode():
         fwd_kernel_ms, _ = _kernel_ms(lambda: model(*fwd_args, **fwd_kwargs), n)
+    if retina:
+        decode_ms = _decode_ms(pred, model, fwd_args[0], n)
 
+    what = "retinanet" if retina else f"rrnet, stage-1 {args.nms}"
     print(f"{torch.cuda.get_device_name(0)}; {n} requests of 765x1360, "
-          f"stage-1 {args.nms}, transport {cfg.val.transport}; medians in "
-          "ms")
+          f"{what}, transport {cfg.val.transport}; medians in ms")
     print(f"request latency (no profiler): p50 {lat_ms:.2f}, p90 "
           f"{float(np.percentile(lat, 90)) * 1e3:.2f}, min "
           f"{min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}")
@@ -146,11 +159,35 @@ def main(argv=None) -> None:
           f"issue it {float(np.median(host_fwd)) * 1e3:.2f}")
     print("device span per part: " + ", ".join(
         f"{k} {v:.2f}" for k, v in part_ms.items() if k != "forward")
-        + f"; decode+NMS+ROI-align {rest:.2f}")
+        + (f"; the rest of the forward (flatten, concat) {rest:.2f}; "
+           f"decode + hard NMS after it {decode_ms:.2f}" if retina else
+           f"; decode+NMS+ROI-align {rest:.2f}"))
     print(f"kernels per request {req_kernel_ms:.2f}: device busy "
           f"{100 * req_kernel_ms / lat_ms:.1f}% of the unprofiled latency")
     print(avg.table(sort_by="self_device_time_total", row_limit=25,
                     max_name_column_width=60))
+
+
+def _decode_ms(pred, model, x, n):
+    """Median device span of RetinaNet's decode + hard NMS, run as a
+    request runs it on the forward's own outputs (CUDA events)."""
+    from rrnet_torch.models import retinanet
+    ev = pred._ev
+    vhw = torch.tensor([[765, 1360]], dtype=torch.int32, device=x.device)
+    anchors = ev.anchors_for(tuple(x.shape[-2:]))
+    topk = min(4 * ev.decode_topk, anchors.shape[0])
+    spans = []
+    with torch.inference_mode():
+        loc, cls = model(x)
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            retinanet.decode(loc, cls, anchors, vhw, topk)
+            b.record()
+            torch.cuda.synchronize()
+            spans.append(a.elapsed_time(b))
+    return float(np.median(spans))
 
 
 if __name__ == "__main__":

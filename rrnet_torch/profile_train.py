@@ -1,19 +1,21 @@
-"""Where the flagship RRNet train step's time goes on the card.
+"""Where a train step's time goes on the card.
 
-    python -m rrnet_torch.profile_train [--iters N]
+    python -m rrnet_torch.profile_train [--iters N] [--config rrnet|retinanet]
 
 Builds `train.Trainer` on the `rrnet` preset at full width (hourglass-104,
 2 stacks, bf16 compute, f32 parameters and Adam state, the preset's
-stage-1 hard NMS, stage 2 from step 0) with seeded weights, and one seeded synthetic batch
-of 4 uint8 512x512 crops with 100-250 boxes each (`synthetic_batch`, as
-`chip_smoke.py` drives it). It prints, as medians over N steps after 2
-warm-ups:
+stage-1 hard NMS, stage 2 from step 0), or on the `retinanet` preset
+(`--config retinanet`: ResNet-50, FPN-256, the two towers, bf16), with
+seeded weights, and one seeded synthetic batch of 4 uint8 512x512 crops
+with 100-250 boxes each (`synthetic_batch`, as `chip_smoke.py` drives
+it). It prints, as medians over N steps after 2 warm-ups:
   * wall time per step without the profiler (host clock around a step
     that ends in a synchronize), and the peak device memory;
   * the device span of each phase, from CUDA events: the forward and, in
-    it, the backbone, the stage-1 heads and the rest (decode, NMS,
-    ROI-align, stage 2); the targets and losses; the backward with the
-    gradient flatten; the Adam update;
+    it, the backbone, the heads (RRNet: the stage-1 heads, the rest being
+    decode, NMS, ROI-align and stage 2; RetinaNet: the FPN and the two
+    towers over their three levels); the targets and losses; the
+    backward with the gradient flatten; the Adam update;
   * kernel time per step from `torch.profiler`, the device's busy share
     of the unprofiled wall time, the NMS kernels' time, and the busiest
     kernels.
@@ -31,10 +33,12 @@ import torch
 from rrnet_torch import config
 
 
-def train_config():
-    """The preset as the train path runs it: its defaults, and stage 2 on
-    from the first step (the one cut, so that its loss and gradient run
-    within a few steps)."""
+def train_config(name: str = "rrnet"):
+    """The preset as the train path runs it: its defaults, and for RRNet
+    stage 2 on from the first step (the one cut, so that its loss and
+    gradient run within a few steps)."""
+    if name == "retinanet":
+        return config.retinanet_config()
     return config.rrnet_config(**{"train.stage2_warmup_steps": 0})
 
 
@@ -89,20 +93,27 @@ class _Spans:
                     lambda *_: self.start(name)),
                 module.register_forward_hook(lambda *_: self.stop(name))]
 
-    def medians(self):
-        return {k: float(np.median([a.elapsed_time(b) for a, b in v]))
-                for k, v in self.events.items()}
+    def medians(self, n):
+        """Per part, the median over `n` steps of its span summed over
+        the step (a head runs once a stack or a level)."""
+        return {k: float(np.median(np.reshape(
+            [a.elapsed_time(b) for a, b in v], (n, -1)).sum(1)))
+            for k, v in self.events.items()}
 
 
 def main(argv=None) -> None:
     from rrnet_torch.train import Trainer
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--config", choices=("rrnet", "retinanet"),
+                    default="rrnet")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     n = args.iters
-    cfg = train_config()
+    cfg = train_config(args.config)
+    retina = args.config == "retinanet"
+    heads = ("fpn", "cls", "loc") if retina else ("hm", "wh", "offset")
     trainer = Trainer(cfg, device="cuda")
     state = trainer.init_state(generator=torch.Generator().manual_seed(
         cfg.seed))
@@ -125,9 +136,9 @@ def main(argv=None) -> None:
 
     spans = _Spans()
     m = trainer.model
-    handles = (spans.hook("forward", m) + spans.hook("backbone", m.backbone)
-               + spans.hook("hm", m.hm) + spans.hook("wh", m.wh)
-               + spans.hook("offset", m.offset))
+    handles = spans.hook("forward", m) + spans.hook("backbone", m.backbone)
+    for k in heads:
+        handles += spans.hook(k, getattr(m, k))
     losses = trainer._losses
     trainer._losses = spans.wrap("targets+losses", losses)
     update = state.apply_gradients
@@ -140,7 +151,7 @@ def main(argv=None) -> None:
         h.remove()
     trainer._losses = losses
     del state.apply_gradients
-    ms = spans.medians()
+    ms = spans.medians(n)
     # the backward: from the end of the losses to the start of the update
     back = [a[1].elapsed_time(b[0]) for a, b in
             zip(spans.events["targets+losses"], spans.events["update"])]
@@ -158,17 +169,21 @@ def main(argv=None) -> None:
     kernel_ms = sum(v for v, _ in rows.values())
     nms = {k: v for k, v in rows.items() if "nms_" in k}
     p50 = float(np.median(wall))
-    heads = ms["hm"] + ms["wh"] + ms["offset"]
-    print(f"{torch.cuda.get_device_name(0)}; rrnet preset, bf16, "
-          f"{cfg.model.nms_type_for_stage1} stage 1, batch 4x512x512, "
+    head_ms = sum(ms[k] for k in heads)
+    what = ("retinanet preset, bf16" if retina else
+            f"rrnet preset, bf16, {cfg.model.nms_type_for_stage1} stage 1")
+    print(f"{torch.cuda.get_device_name(0)}; {what}, batch 4x512x512, "
           f"{int(batch['valid'].sum())} boxes; medians over {n} steps after "
           "2 warm-ups, ms")
     print(f"step wall p50 {p50:.2f} (min {min(wall):.2f}, max "
           f"{max(wall):.2f}); peak memory {peak / 2**30:.2f} GiB")
+    rest = ms["forward"] - ms["backbone"] - head_ms
+    parts = (", ".join(f"{k} {ms[k]:.2f}" for k in heads)
+             + f", the rest {rest:.2f}" if retina else
+             f"stage-1 heads {head_ms:.2f}, decode+NMS+ROI-align+stage 2 "
+             f"{rest:.2f}")
     print(f"device span: step {ms['step']:.2f}; forward {ms['forward']:.2f} "
-          f"(backbone {ms['backbone']:.2f}, stage-1 heads {heads:.2f}, "
-          f"decode+NMS+ROI-align+stage 2 "
-          f"{ms['forward'] - ms['backbone'] - heads:.2f}); targets+losses "
+          f"(backbone {ms['backbone']:.2f}, {parts}); targets+losses "
           f"{ms['targets+losses']:.2f}; backward {float(np.median(back)):.2f};"
           f" update {ms['update']:.2f}")
     print(f"kernels per step {kernel_ms:.2f}: device busy "

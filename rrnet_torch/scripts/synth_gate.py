@@ -1,7 +1,8 @@
-"""Synthetic train -> eval -> AP gate for the rrnet and centernet
-families (port of `scripts/synth_gate.py`'s rows):
+"""Synthetic train -> eval -> AP gate for the rrnet, centernet and
+retinanet families (port of `scripts/synth_gate.py`'s rows):
 
-    python -m rrnet_torch.scripts.synth_gate [--family rrnet|centernet]
+    python -m rrnet_torch.scripts.synth_gate
+        [--family rrnet|centernet|retinanet]
         [--steps N] [--batch 8] [--dir DIR] [--out SYNTH_AP_torch.json]
         [--device cuda] [key=value ...]
 
@@ -13,8 +14,9 @@ val images (scale 1, no flip, batch 4) and `evaluate_results`. The JAX
 gate's schedules: rrnet 1600 steps with stage 2 gated off for the first
 steps // 4, scored for three decodes of the same weights (the full
 stage-2 re-regression, the stage-1 ROIs alone, all-zero deltas);
-centernet 400 steps, one decode. `seed=S` among the overrides draws
-other weights, permutations and samples; the set stays seed 219.
+centernet 400 steps, one decode; retinanet 1600 steps, one decode (no
+host merge). `seed=S` among the overrides draws other weights,
+permutations and samples; the set stays seed 219.
 
 Adds the run's row (APs, the train time and the share of it the step
 loop spent waiting for batches, the seed, the card) to the rows already
@@ -47,8 +49,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 N_TRAIN, N_VAL, SEED = 32, 8, 219
 DECODES = {"rrnet": (("rrnet", "full"), ("stage1_only", "stage1"),
                      ("zero_delta", "zero")),
-           "centernet": (("centernet", "full"),)}
-STEPS = {"rrnet": 1600, "centernet": 400}
+           "centernet": (("centernet", "full"),),
+           "retinanet": (("retinanet", "full"),)}
+STEPS = {"rrnet": 1600, "centernet": 400, "retinanet": 1600}
 METRICS = ("AP", "AP50", "AP75", "AR")
 
 
@@ -195,7 +198,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     "split.")
     ap.add_argument("--family", default="rrnet", choices=sorted(DECODES))
     ap.add_argument("--steps", type=int, default=None,
-                    help="train steps (default: rrnet 1600, centernet 400)")
+                    help="train steps (default: rrnet 1600, centernet "
+                    "400, retinanet 1600)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--dir", default=os.path.join(REPO, "build", "rrnet_synth"),
                     help="where the synthetic set and results are written")

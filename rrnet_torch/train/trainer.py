@@ -1,5 +1,5 @@
-"""Trainer: the train step of RRNet and CenterNet on one card (port of
-`rrnet_tpu/train/trainer.py:33-217`).
+"""Trainer: the train step of RRNet, CenterNet and RetinaNet on one card
+(port of `rrnet_tpu/train/trainer.py:33-217`).
 
     trainer = Trainer(cfg)                       # device="cuda"
     state = trainer.init_state(generator=...)
@@ -15,9 +15,12 @@
 numpy arrays or tensors; they are moved to the trainer's device.
 
 One step: normalise on the device, the model in train mode on the state
-(`torch.func.functional_call`, batch statistics), the targets rendered
-on the device, the losses (total = hm + wh_weight * wh + off, plus for
-RRNet s2, gated off for the first `train.stage2_warmup_steps` steps), the
+(`torch.func.functional_call`, batch statistics), the losses: for the
+CenterNet family the targets rendered on the device and total = hm +
+wh_weight * wh + off, plus for RRNet s2, gated off for the first
+`train.stage2_warmup_steps` steps; for RetinaNet the anchors of the crop
+size (computed once, a device constant) assigned by IoU and total = cls +
+reg. Then the
 gradients, then the fused Adam with the exact skip: a non-finite total
 leaves params, moments, counts, step and BN running statistics as they
 were (the reference skips a step on CUDA OOM, rrnet_operator.py:120-126),
@@ -37,6 +40,7 @@ from torch.func import functional_call
 from rrnet_torch.config import Config
 from rrnet_torch.data.yuv420 import unpack_yuv420_device
 from rrnet_torch.models import build_model
+from rrnet_torch.models.anchors import model_anchors
 from rrnet_torch.train import criterions
 from rrnet_torch.train.state import TrainState, create_train_state, views
 from rrnet_torch.utils.device import resolve_device
@@ -48,9 +52,6 @@ class Trainer:
 
     def __init__(self, cfg: Config,
                  device: Union[str, torch.device] = "cuda"):
-        if cfg.model.name not in ("rrnet", "centernet"):
-            raise NotImplementedError(
-                f"the {cfg.model.name!r} train step is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, device=self.device).train()
@@ -61,6 +62,11 @@ class Trainer:
                                  device=self.device)
         self.std = torch.tensor(cfg.train.std, dtype=torch.float32,
                                 device=self.device)
+        self.anchors = None
+        if cfg.model.name == "retinanet":
+            self.anchors = torch.tensor(
+                model_anchors(cfg.model, cfg.train.crop_size),
+                device=self.device)
 
     # ------------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None
@@ -91,6 +97,14 @@ class Trainer:
 
     def _losses(self, outs, annos, valid, step) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
+        if cfg.model.name == "retinanet":
+            loc, cls = outs
+            m = cfg.model
+            ld = criterions.retinanet_criterion(
+                loc, cls, annos, valid, self.anchors,
+                pos_iou=m.retina_pos_iou, neg_iou=m.retina_neg_iou,
+                alpha=m.retina_alpha, gamma=m.retina_gamma)
+            return ld["cls"] + ld["reg"], ld
         targets = criterions.centernet_targets(
             annos, valid, self.feat_shape, cfg.train.scale_factor,
             cfg.num_classes)
@@ -131,8 +145,8 @@ class Trainer:
     def train_step(self, state: TrainState, batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update, IN PLACE on `state` (returned). metrics: hm, wh,
-        off, (RRNet) s2, total and skipped, 0-dim f32 tensors on the
-        device."""
+        off and (RRNet) s2, or (RetinaNet) cls and reg; total and
+        skipped; 0-dim f32 tensors on the device."""
         old_stats = state.flat_stats.clone()
         total, grads, ld = self._value_grads(state, batch)
         good = torch.isfinite(total)

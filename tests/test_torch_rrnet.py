@@ -198,7 +198,10 @@ assert not bad, bad
     for mod in ("rrnet_torch.train.trainer", "rrnet_torch.train.state",
                 "rrnet_torch.train.criterions", "rrnet_torch.train.schedule",
                 "rrnet_torch.utils.checkpoint", "rrnet_torch.ops.targets",
-                "rrnet_torch.losses", "rrnet_torch.profile_train"):
+                "rrnet_torch.losses", "rrnet_torch.profile_train",
+                "rrnet_torch.models.anchors", "rrnet_torch.models.retinanet",
+                "rrnet_torch.models.modules",
+                "rrnet_torch.models.backbones.resnet"):
         assert mod in res.stdout, mod
 
 

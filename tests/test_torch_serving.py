@@ -75,8 +75,8 @@ def test_predictor_surface(pair):
 
 def test_unported_eval_protocol_raises(pair):
     """deployment=False serves the preset's whole eval protocol (its six
-    scales), as the Evaluator does; a family not ported yet (RetinaNet)
-    still raises."""
+    scales), as the Evaluator does; a family the port does not have
+    raises."""
     _, _, tm, _, tc = pair
     multi = TPredictor(tc, tm, device="cpu", bucket_multiple=64,
                        deployment=False)
@@ -87,4 +87,4 @@ def test_unported_eval_protocol_raises(pair):
     assert len(want) > 0
     with pytest.raises(NotImplementedError):
         TEvaluator(tc.replace(model=dataclasses.replace(
-            tc.model, name="retinanet")), tm, device="cpu")
+            tc.model, name="ssd")), tm, device="cpu")

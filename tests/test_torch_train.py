@@ -517,7 +517,7 @@ def test_train_state_converter_raises_on_unmapped_leaves(tiny):
 
 def test_trainer_refusals(monkeypatch):
     with pytest.raises(NotImplementedError):
-        TTrainer(tcfg.rrnet_config(**{"model.name": "retinanet"}),
+        TTrainer(tcfg.rrnet_config(**{"model.name": "ssd"}),
                  device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
