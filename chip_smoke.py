@@ -92,9 +92,27 @@ Phases (any failure exits non-zero before the result line):
      merge) over 8 frames at batch 4 (images/s); a resnet10 RetinaNet at
      2x3x64x64 f32 on the card against the CPU (outputs, rows, one train
      step's losses).
+ 11. hrnetv2-attention path: the `rrnet_hrnetv2_attention` preset at
+     full width (HRNetV2-w40, the windowed self-attention on both stacks
+     with each output projection W drawn nonzero, topk 1500, 512 ROIs,
+     bf16, seeded weights): `Predictor` answers 16 single 765x1360
+     requests and a batch of 4 (p50 / p90, one hard-NMS launch a
+     forward, one request's keep mask and ROIs against the plain
+     fixpoint, `select_rois` under the sync debug mode "error"), then
+     per-class soft-NMS (one B.2 launch a forward, ROIs equal to the
+     plain serial soft-NMS's); `Trainer` takes 10 steps on one seeded
+     batch of 4 uint8 512x512 crops (finite, falling; step p50, peak
+     memory; the frozen HRNetV2 BN statistics bitwise unchanged, the
+     others moved) and an inf batch that leaves the state bitwise;
+     `evaluate_split` at the preset's protocol (six scales, auto_test)
+     over 8 frames at batch 4 (images/s, peak memory); the preset on a
+     small HRNetV2 at 2x3x64x64 f32 and the dense and SE hourglass and
+     ShuffleNetV2 0.5x at small size on the card against the CPU; a
+     full-width bf16 forward of each of those three at 1x3x768x1408.
 Each path runs with every launch count set to 0 just before it and read
-just after. Then JSON lines hold the data path's, the eval protocol's
-and the retinanet path's numbers, one lists every kernel,
+just after. Then JSON lines hold the data path's, the eval protocol's,
+the retinanet path's and the hrnetv2-attention path's numbers, one
+lists every kernel,
 and the last line is the result. It exits non-zero without a result when no CUDA device is
 present.
 """
@@ -2719,6 +2737,484 @@ def run_retinanet_path(torch, sn, hn, card):
     return entry, entry["serve"]["hard_nms_launches"]
 
 
+SMALL_HRNET = dict(base_channels=8, stage_modules=(1, 1, 1))
+
+
+def draw_attention_w(torch, named, generator):
+    """Each `attention{i}.W` tensor among `named` ((name, tensor) pairs:
+    a model's parameters or a TrainState's views; zero at init, when the
+    module adds exactly 0) drawn from `generator`: U(+-1/sqrt(fan_in)) on
+    the kernel, N(0, 0.1) on the bias. Returns the names drawn."""
+    drawn = []
+    with torch.no_grad():
+        for name, p in named:
+            if ".W." not in name:
+                continue
+            if p.dim() == 4:
+                v = (torch.rand(p.shape, generator=generator) * 2 - 1) / (
+                    p.shape[1] ** 0.5)
+            else:
+                v = torch.randn(p.shape, generator=generator) * 0.1
+            p.copy_(v)
+            drawn.append(name)
+    return drawn
+
+
+class small_hrnet_backbone:
+    """Inside the block RRNet builds the small HRNetV2 (base 8, modules
+    (1, 1, 1)) whatever backbone its config names."""
+
+    def __enter__(self):
+        from rrnet_torch.models import rrnet as rrnet_mod
+        from rrnet_torch.models.backbones.hrnetv2 import HRNetV2
+        self.mod, self.real = rrnet_mod, rrnet_mod.get_backbone
+        rrnet_mod.get_backbone = (lambda name, num_stacks=2, dtype=None:
+                                  HRNetV2(dtype=dtype, **SMALL_HRNET))
+
+    def __exit__(self, *exc):
+        self.mod.get_backbone = self.real
+
+
+def check_small_hrnet_attention(torch):
+    """The preset on the small HRNetV2 (attention on both stacks, every W
+    drawn nonzero), f32, at 2x3x64x64: the card against the CPU on the
+    same weights (the path the CPU tests hold to the JAX package):
+    heads within 1e-4, ROIs, classes and validity; then one train step's
+    losses within 1e-4 and its BN statistics (the backbone's unchanged
+    on both). Then the rest of the registry at small size, card against
+    CPU: the dense and the SE hourglass (depth 2, inplanes (64, 64, 96);
+    256 and 64 features), ShuffleNetV2 0.5x, each map within 1e-4 of its
+    largest magnitude."""
+    from rrnet_torch import config as cfglib
+    from rrnet_torch.models import build_model
+    from rrnet_torch.models.backbones.hourglass import HourglassNet
+    from rrnet_torch.models.backbones.shufflenet import ShuffleNetV2
+    from rrnet_torch.models.layers import init_weights
+    from rrnet_torch.profile_train import synthetic_batch
+    from rrnet_torch.train import Trainer
+
+    cfg = cfglib.rrnet_hrnetv2_attention_config(**{
+        "model.topk": 64, "model.stage2_rois": 16, "model.dtype": "float32",
+        "train.crop_size": (64, 64), "train.max_objects": 16,
+        "train.stage2_warmup_steps": 0})
+    gen = torch.Generator().manual_seed(11)
+    with small_hrnet_backbone():
+        cpu = build_model(cfg, device="cpu", generator=gen)
+        gpu = build_model(cfg, device="cuda", generator=gen)
+    draw_attention_w(torch, cpu.named_parameters(), gen)
+    with torch.no_grad():
+        for i in range(2):
+            getattr(cpu.hm, f"out{i}").weight.mul_(4.0)
+            for h in ("hconv", "wconv"):
+                getattr(cpu.wh, f"{h}{i}").bias.add_(3.0)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(12).randn(2, 3, 64, 64)
+                         .astype(np.float32))
+    vhw = torch.tensor([[64, 64], [52, 60]], dtype=torch.int32)
+    with torch.inference_mode():
+        att = cpu.attention1(torch.relu(cpu.backbone(x)[1]))
+        a = cpu(x, valid_hw=vhw)
+        b = gpu(x.cuda(), valid_hw=vhw.cuda())
+    if not float(att.abs().max()) > 1e-3:
+        raise AssertionError("small HRNetV2 preset: the attention adds 0")
+    for name in ("roi_valid", "roi_classes"):
+        if not torch.equal(getattr(a, name), getattr(b, name).cpu()):
+            raise AssertionError(f"small HRNetV2 preset f32: {name} differ "
+                                 "cuda vs cpu")
+    torch.testing.assert_close(b.rois.cpu(), a.rois, atol=1e-3, rtol=0)
+    for k in ("hms", "whs", "offsets"):
+        for u, v in zip(getattr(a, k), getattr(b, k)):
+            torch.testing.assert_close(v.cpu(), u, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(b.stage2_reg.cpu(), a.stage2_reg, atol=1e-4,
+                               rtol=1e-4)
+
+    with small_hrnet_backbone():
+        trainers = [Trainer(cfg, device=d) for d in ("cpu", "cuda")]
+        state = trainers[0].init_state(
+            generator=torch.Generator().manual_seed(13))
+    draw_attention_w(torch, state.params().items(),
+                     torch.Generator().manual_seed(14))
+    batch = synthetic_batch(np.random.RandomState(15), b=2, hw=(64, 64),
+                            max_objects=16, n_valid=(4, 12),
+                            size=(8.0, 40.0))
+    metrics, stats = [], []
+    before = {k: v.clone() for k, v in state.batch_stats().items()}
+    for tr, st in zip(trainers, (state, state.to("cuda"))):
+        st, m = tr.train_step(st, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        stats.append({k: v.cpu() for k, v in st.batch_stats().items()})
+    worst = max(abs(metrics[1][k] - metrics[0][k])
+                / max(abs(metrics[0][k]), 1e-30) for k in metrics[0])
+    if not worst <= 1e-4:
+        raise AssertionError(f"small HRNetV2 preset train step cuda vs cpu: "
+                             f"{metrics}")
+    for k, v in before.items():
+        frozen = k.startswith("backbone.")
+        for s in stats:
+            if torch.equal(s[k], v) != frozen:
+                raise AssertionError(f"small HRNetV2 preset train step: "
+                                     f"{k} {'moved' if frozen else 'stuck'}")
+        torch.testing.assert_close(stats[1][k], stats[0][k], atol=1e-4,
+                                   rtol=1e-4)
+    print(f"  small HRNetV2 preset f32 2x3x64x64 cuda == cpu: "
+          f"{int(a.roi_valid.sum())} ROIs, classes/validity equal, boxes "
+          f"within 1e-3, heads within 1e-4, attention adds up to "
+          f"{float(att.abs().max()):.3g}; one train step's losses within "
+          f"{worst:.3g} ({metrics[0]}); backbone BN statistics unchanged "
+          f"on both, the others moved alike", flush=True)
+
+    small = {"dense_hourglass": lambda: HourglassNet(
+                 depth=2, inplanes=(64, 64, 96), layer_nums=(1, 1, 1),
+                 num_feats=256, dense=True),
+             "se_hourglass": lambda: HourglassNet(
+                 depth=2, inplanes=(64, 64, 96), layer_nums=(1, 1, 1),
+                 num_feats=64, se=True, pool_stem=True),
+             "shufflenet_0.5x": lambda: ShuffleNetV2("0.5x")}
+    x = torch.from_numpy(np.random.RandomState(16).randn(2, 3, 64, 64)
+                         .astype(np.float32))
+    for name, make in small.items():
+        cpu = init_weights(make(), torch.Generator().manual_seed(17)).eval()
+        gpu = make().cuda().eval()
+        gpu.load_state_dict(cpu.state_dict())
+        with torch.inference_mode():
+            for u, v in zip(cpu(x), gpu(x.cuda())):
+                scale = float(u.abs().max())
+                torch.testing.assert_close(v.cpu(), u, atol=1e-4 * scale,
+                                           rtol=0, msg=name)
+        print(f"  {name} (small) f32 2x3x64x64 cuda == cpu within 1e-4 of "
+              f"each map's largest magnitude", flush=True)
+
+
+def run_hrnet_attention_path(torch, sn, hn, card):
+    """Phase 11: the `rrnet_hrnetv2_attention` preset at full width
+    (HRNetV2-w40, two stacks on its 40- and 80-channel maps, the windowed
+    self-attention on each, stage 2 on the 320-channel map, topk 1500,
+    512 ROIs, bf16), seeded weights with each `attention{i}.W` drawn
+    nonzero from the generator (at its zero init the attention adds 0).
+    Serving: `Predictor` answers 16 single 765x1360 requests and a batch
+    of 4 in the 768x1408 bucket (p50 / p90), one hard-NMS launch a
+    forward; one request's keep mask redone by the plain fixpoint, and
+    `select_rois` run under the sync debug mode "error". Then the same
+    model with `nms_type_for_stage1=soft_nms`: one B.2 launch a forward
+    and one request's ROIs equal to the plain serial soft-NMS's.
+    Training: `Trainer` takes 10 steps on one seeded batch of 4 uint8
+    512x512 crops (finite, falling totals; step p50, peak memory); the
+    HRNetV2 BN statistics bitwise unchanged (`norm_eval`), the attention
+    towers' and stage 2's moved; an inf batch leaves the state bitwise.
+    Eval: `evaluate_split` at the preset's protocol (six scales,
+    auto_test) over 8 frames at batch 4 (images/s, peak memory, one
+    hard-NMS launch a scale a batch). Then the small reference, and a
+    full-width bf16 eval forward of the dense and the SE hourglass and
+    ShuffleNetV2 0.5x at 1x3x768x1408. Each part runs with every launch
+    count set to 0 just before it and read just after. Returns (the JSON
+    "hrnetv2_attention" entry, {kernel: launches of this path})."""
+    import tempfile
+    from rrnet_torch import config as cfglib
+    from rrnet_torch.evallib.infer import Evaluator
+    from rrnet_torch.models import build_backbone, build_model
+    from rrnet_torch.models.rrnet import mask_heatmap_extent
+    from rrnet_torch.ops import deform_conv as tdc
+    from rrnet_torch.ops.heatmap import topk_decode, topk_desc
+    from rrnet_torch.profile_train import synthetic_batch
+    from rrnet_torch.serving import Predictor
+    from rrnet_torch.train import Trainer
+
+    def zero_counts():
+        hn.launches = sn.launches = sn.classes_launches = 0
+        tdc.fwd_launches = tdc.bwd_launches = 0
+
+    def read_counts():
+        return {"hard_nms": hn.launches, "soft_nms": sn.launches,
+                "soft_nms_classes": sn.classes_launches,
+                "dcn": tdc.fwd_launches + tdc.bwd_launches}
+
+    cfg = cfglib.rrnet_hrnetv2_attention_config()
+    entry, launches = {}, {}
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = build_model(cfg, device="cpu", generator=gen)
+    drawn = draw_attention_w(torch, model.named_parameters(), gen)
+    model = model.to("cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  rrnet_hrnetv2_attention preset: {cfg.model.backbone} widths "
+          f"{model.backbone.out_channels}, attention on stacks 0-1, "
+          f"{cfg.model.dtype}, topk {cfg.model.topk}, {cfg.model.stage2_rois} "
+          f"ROIs, {n_params} params, built in "
+          f"{time.perf_counter() - t0:.1f} s; {sorted(drawn)} drawn from the "
+          f"generator (seed {cfg.seed}), not zero", flush=True)
+    if n_params != 46_582_616:
+        raise AssertionError(f"rrnet_hrnetv2_attention has {n_params} params")
+
+    # --- serving at the defaults (hard NMS)
+    pred = Predictor(cfg, model, device="cuda")
+    forwards = []
+    hook = model.register_forward_hook(
+        lambda module, args, kwargs, out: forwards.append(
+            (out, kwargs.get("valid_hw"))), with_kwargs=True)
+    frames = demo_frames(16)
+    images = [f["image"] for f in frames]
+    pred.warmup(((765, 1360),), batch_sizes=(1, 4))
+    torch.cuda.synchronize()
+    forwards.clear()
+    zero_counts()
+    ms, outs = [], []
+    for im in images:
+        t = time.perf_counter()
+        outs.append(pred.predict(im))
+        ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    outs += pred.predict_batch(images[:4])
+    batch_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    counts = read_counts()                                   # just after
+    n_fwd = len(forwards)
+    if counts != {"hard_nms": n_fwd, "soft_nms": 0, "soft_nms_classes": 0,
+                  "dcn": 0} or n_fwd != len(images) + 1:
+        raise AssertionError(f"hrnetv2-attention serving: launches {counts} "
+                             f"in {n_fwd} forwards (want one hard_nms each)")
+    for d in outs:
+        check_detections(d, cfg.model.stage2_rois, cfg.num_classes)
+    launches["hard_nms"] = counts["hard_nms"]
+    p50, p90 = (float(np.percentile(ms, q)) for q in (50, 90))
+    entry["serve"] = {"p50_ms": p50, "p90_ms": p90, "batch4_ms": batch_ms,
+                      "requests": len(ms), "hard_nms_launches": n_fwd,
+                      "rows": [len(d) for d in outs]}
+    print(f"  hrnetv2-attention serving on {card}: {len(ms)} single "
+          f"765x1360 requests p50 {p50:.2f} ms, p90 {p90:.2f} ms (min "
+          f"{min(ms):.2f}, max {max(ms):.2f}); a batch of 4 {batch_ms:.2f} "
+          f"ms; launches {counts} in {n_fwd} forwards; rows per request "
+          f"{[len(d) for d in outs[:4]]}...", flush=True)
+
+    def redo(select, name):
+        """Request 0's ROI selection again from its own heads with
+        `select(dets) -> masked scores`: the same ROIs, classes and
+        validity, scores within rtol 1e-5; then `select_rois` on the same
+        candidates under the sync debug mode "error"."""
+        out, vhw = forwards[0]
+        with torch.inference_mode():
+            hm = mask_heatmap_extent(out.hms[-1].float(), vhw, 4)
+            dets = topk_decode(hm, out.whs[-1].float(),
+                               out.offsets[-1].float(), k=model.topk)
+            top, idx = topk_desc(select(dets), model.stage2_rois)
+            valid = top > -torch.inf
+            rois = torch.gather(dets.boxes, 1,
+                                idx[..., None].expand(-1, -1, 4))
+            if not (torch.equal(valid, out.roi_valid)
+                    and torch.equal(rois, out.rois)
+                    and torch.equal(torch.gather(dets.classes, 1, idx),
+                                    out.roi_classes)):
+                raise AssertionError(f"hrnetv2-attention ROI selection "
+                                     f"differs from the plain {name}")
+            torch.testing.assert_close(torch.where(valid, top, 0.0),
+                                       out.roi_scores, rtol=1e-5, atol=0)
+            args = (dets.boxes.contiguous(), dets.scores.contiguous(),
+                    dets.classes.contiguous())
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again = model.select_rois(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if not torch.equal(again[0], out.rois):
+                raise AssertionError("select_rois under the sync debug mode "
+                                     "differs")
+        return dets, int(out.roi_valid.sum())
+
+    dets, n_rois = redo(lambda d: torch.where(hn.hard_nms_reference(
+        d.boxes, d.scores, model.nms_iou, None, d.classes), d.scores,
+        -torch.inf), "hard-NMS fixpoint")
+    with torch.inference_mode():
+        keep = hn.hard_nms(dets.boxes.contiguous(), dets.scores.contiguous(),
+                           model.nms_iou, class_ids=dets.classes.contiguous())
+        ref = hn.hard_nms_reference(dets.boxes, dets.scores, model.nms_iou,
+                                    None, dets.classes)
+    if not torch.equal(keep, ref):
+        raise AssertionError("hrnetv2-attention request: hard_nms keep "
+                             "differs from the plain fixpoint")
+    print(f"  request 0: the kernel's keep mask ({int(keep.sum())} of "
+          f"{keep.numel()}) bit-equal to the plain fixpoint; ROI selection "
+          f"== the plain fixpoint's ({n_rois} ROIs); select_rois ran under "
+          f"the sync debug mode \"error\"", flush=True)
+
+    # --- the same model with per-class soft-NMS: B.2
+    model.nms_type = "soft_nms"
+    forwards.clear()
+    zero_counts()
+    ms_soft = []
+    for im in images[:4]:
+        t = time.perf_counter()
+        check_detections(pred.predict(im), cfg.model.stage2_rois,
+                         cfg.num_classes)
+        ms_soft.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    counts = read_counts()                                   # just after
+    if counts != {"hard_nms": 0, "soft_nms": 0, "soft_nms_classes": 4,
+                  "dcn": 0} or len(forwards) != 4:
+        raise AssertionError(f"hrnetv2-attention soft-NMS: launches {counts} "
+                             f"in {len(forwards)} forwards (want one "
+                             f"soft_nms_classes each)")
+    launches["soft_nms_classes"] = counts["soft_nms_classes"]
+
+    def plain_soft(d):
+        ns, keep, _ = sn.soft_nms_reference(
+            d.boxes, d.scores, None, d.classes, sigma=model.soft_nms_sigma,
+            iou_threshold=model.nms_iou,
+            score_threshold=model.soft_nms_score_threshold,
+            method="gaussian", max_out=model.stage2_rois)
+        return torch.where(keep, ns, -torch.inf)
+
+    _, n_rois = redo(plain_soft, "serial soft-NMS")
+    model.nms_type = "nms"
+    hook.remove()
+    entry["serve_soft_nms"] = {"p50_ms": float(np.percentile(ms_soft, 50)),
+                               "requests": 4, "soft_nms_classes_launches": 4}
+    print(f"  soft-NMS per class: launches {counts} in 4 forwards; request "
+          f"0's ROIs == the plain serial soft-NMS's ({n_rois} ROIs); p50 "
+          f"{entry['serve_soft_nms']['p50_ms']:.2f} ms", flush=True)
+    del pred
+
+    # --- training
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(generator=torch.Generator().manual_seed(
+        cfg.seed))
+    draw_attention_w(torch, state.params().items(),
+                     torch.Generator().manual_seed(cfg.seed + 1))
+    batch = synthetic_batch(np.random.RandomState(cfg.seed))
+    stats0 = {k: v.clone() for k, v in state.batch_stats().items()}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    stats = state.batch_stats()
+    frozen_moved = [k for k in stats0 if k.startswith("backbone.")
+                    and not torch.equal(stats[k], stats0[k])]
+    stuck = [k for k in stats0 if not k.startswith("backbone.")
+             and torch.equal(stats[k], stats0[k])]
+    n_frozen = sum(k.startswith("backbone.") for k in stats0)
+    before = state_bits(torch, state)
+    bad = dict(batch, images=np.full(batch["images"].shape, np.inf,
+                                     np.float32))
+    state, m_bad = trainer.train_step(state, bad)
+    torch.cuda.synchronize()
+    after = state_bits(torch, state)
+    counts = read_counts()                                   # just after
+    if counts != {"hard_nms": 11, "soft_nms": 0, "soft_nms_classes": 0,
+                  "dcn": 0}:
+        raise AssertionError(f"hrnetv2-attention train steps launched "
+                             f"{counts} (want 11 hard_nms)")
+    launches["hard_nms_train"] = counts["hard_nms"]
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"non-finite hrnetv2-attention losses: "
+                             f"{metrics}")
+    totals = [m["total"] for m in metrics]
+    if not totals[-1] < totals[0] or any(m["skipped"] for m in metrics):
+        raise AssertionError(f"hrnetv2-attention train total did not fall: "
+                             f"{totals}")
+    if frozen_moved or stuck:
+        raise AssertionError(f"hrnetv2-attention BN statistics: frozen ones "
+                             f"moved {frozen_moved[:5]}, others stuck "
+                             f"{stuck[:5]}")
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if float(m_bad["skipped"]) != 1.0 or changed:
+        raise AssertionError(f"hrnetv2-attention inf batch: skipped "
+                             f"{float(m_bad['skipped'])}, state changed in "
+                             f"{changed}")
+    timed = ms[2:]
+    entry["train"] = {"step_p50_ms": float(np.percentile(timed, 50)),
+                      "max_memory_allocated_gib": peak / 2**30,
+                      "totals": totals, "step_ms": ms,
+                      "frozen_bn_buffers": n_frozen,
+                      "moved_bn_buffers": len(stats0) - n_frozen}
+    print(f"  hrnetv2-attention train step 4x512x512 {cfg.model.dtype} on "
+          f"{card}: p50 {entry['train']['step_p50_ms']:.2f} ms (steps 3-10; "
+          f"{[round(x, 1) for x in ms]}); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; (hm, wh, off, s2, total) per step "
+          + "; ".join(f"{m['hm']:.4f} {m['wh']:.4f} {m['off']:.4f} "
+                      f"{m['s2']:.4f} {m['total']:.4f}" for m in metrics)
+          + f"; the {n_frozen} HRNetV2 BN buffers bitwise unchanged, the "
+          f"{len(stats0) - n_frozen} others moved; inf batch skipped with "
+          "the state bitwise unchanged", flush=True)
+
+    # --- evaluation at the preset's protocol
+    model = trainer.model.eval()
+    model.load_state_dict(state.state_dict())
+    del trainer, state
+    ev = Evaluator(cfg, model, device="cuda")
+    tmp = tempfile.TemporaryDirectory()
+    ev.evaluate_split(frames[:4], result_dir=os.path.join(tmp.name, "w"),
+                      verbose=False)
+    torch.cuda.synchronize()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_dir = ev.evaluate_split(frames[:8], result_dir=os.path.join(
+        tmp.name, "hr"), batch_size=4, verbose=False)
+    secs = time.perf_counter() - t0
+    counts = read_counts()                                   # just after
+    peak = torch.cuda.max_memory_allocated()
+    n_rows = 0
+    for name in os.listdir(out_dir):
+        with open(os.path.join(out_dir, name)) as f:
+            n_rows += len(f.readlines())
+    tmp.cleanup()
+    n_scales = len(cfg.val.scales)
+    if counts != {"hard_nms": 2 * n_scales, "soft_nms": 0,
+                  "soft_nms_classes": 0, "dcn": 0} or n_rows == 0:
+        raise AssertionError(f"hrnetv2-attention eval: launches {counts} "
+                             f"(want {2 * n_scales} hard_nms), {n_rows} rows")
+    launches["hard_nms_eval"] = counts["hard_nms"]
+    entry["eval"] = {"images_per_s": 8 / secs, "scales": list(cfg.val.scales),
+                     "hard_nms_launches": counts["hard_nms"],
+                     "max_memory_allocated_gib": peak / 2**30,
+                     "rows_written": n_rows}
+    print(f"  hrnetv2-attention preset protocol ({n_scales} scales, no flip, "
+          f"auto_test), 8 frames 765x1360 at batch 4 on {card}: "
+          f"{8 / secs:.2f} images/s ({secs * 1e3:.1f} ms, files written); "
+          f"hard_nms launches {counts['hard_nms']} in 2 batches (one a "
+          f"scale a batch); max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"{n_rows} rows written", flush=True)
+    del model, ev
+
+    check_small_hrnet_attention(torch)
+
+    # --- the rest of the registry at full width, bf16 eval forwards
+    x = torch.from_numpy(np.random.RandomState(18).randn(1, 3, 768, 1408)
+                         .astype(np.float32)).cuda()
+    entry["backbones"] = {}
+    for name in ("dense_hourglass", "se_hourglass", "shufflenet_0.5x"):
+        bb = build_backbone(name, dtype=torch.bfloat16)
+        fwd = []
+        with torch.inference_mode():
+            outs = bb(x)
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                outs = bb(x)
+                torch.cuda.synchronize()
+                fwd.append((time.perf_counter() - t) * 1e3)
+        shapes = [tuple(o.shape) for o in outs]
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            raise AssertionError(f"{name}: non-finite maps")
+        entry["backbones"][name] = {
+            "forward_p50_ms": float(np.percentile(fwd[1:], 50)),
+            "params": sum(p.numel() for p in bb.parameters()),
+            "shapes": shapes}
+        print(f"  {name} full width bf16 1x3x768x1408 on {card}: forward p50 "
+              f"{entry['backbones'][name]['forward_p50_ms']:.2f} ms, "
+              f"{entry['backbones'][name]['params']} params, maps {shapes}",
+              flush=True)
+        del bb, outs
+    entry["launches"] = launches
+    return entry, launches
+
+
 def main(argv=None) -> int:
     import argparse
     from pathlib import Path
@@ -2830,9 +3326,21 @@ def main(argv=None) -> int:
                                                             card)
     print(f"  phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    phase("hrnetv2-attention path")
+    t0 = time.perf_counter()
+    hrnet, hr_launches = run_hrnet_attention_path(torch, sn, hn, card)
+    hrnet["seconds"] = time.perf_counter() - t0
+    print(f"  phase took {hrnet['seconds']:.1f} s", flush=True)
+    hard["hrnet_attention_launches"] = {
+        "serving": hr_launches["hard_nms"],
+        "train": hr_launches["hard_nms_train"],
+        "eval": hr_launches["hard_nms_eval"]}
+    classes["hrnet_attention_launches"] = hr_launches["soft_nms_classes"]
+
     print(json.dumps({"data": data}), flush=True)
     print(json.dumps({"eval_protocol": protocol}), flush=True)
     print(json.dumps({"retinanet": retina}), flush=True)
+    print(json.dumps({"hrnetv2_attention": hrnet}), flush=True)
     print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard]}),
           flush=True)
     print(card, flush=True)

@@ -45,5 +45,8 @@ CUDA kernel `csrc/soft_nms_classes.cu`; the data pipeline (`data.visdrone`,
 (`python -m rrnet_torch.scripts.train`), and the split evaluator
 (`evallib.infer.Evaluator.evaluate_split`, `evallib.metrics`) with the
 synthetic train -> eval -> AP gate (`python -m
-rrnet_torch.scripts.synth_gate`).
+rrnet_torch.scripts.synth_gate`); the presets' eval protocol, CenterNet
+and RetinaNet; the fourth preset, `rrnet_hrnetv2_attention` (HRNetV2-w40
+with the windowed self-attention of `models.modules`); and every backbone
+of the JAX registry (`models.backbones.get_backbone`).
 """

@@ -161,8 +161,25 @@ def retinanet_config(**overrides: Any) -> Config:
     return cfg
 
 
+def rrnet_hrnetv2_attention_config(**overrides: Any) -> Config:
+    """RRNet on HRNetV2-w40 with the windowed self-attention added to
+    each stack's feature (the JAX package's `rrnet_hrnetv2_attention`
+    preset; the reference defined the attention module but never wired
+    it). Stack 0 reads HRNetV2's 40-channel map, stack 1 its 80-channel
+    map, stage 2 its 320-channel map."""
+    cfg = Config(
+        log_prefix="RRNetHRNetV2Attn",
+        model=ModelConfig(name="rrnet", backbone="hrnetv2", num_stacks=2,
+                          sync_bn=True, with_self_attention=True),
+    )
+    for k, v in overrides.items():
+        cfg = set_by_path(cfg, k, v)
+    return cfg
+
+
 PRESETS = {"rrnet": rrnet_config, "centernet": centernet_config,
-           "retinanet": retinanet_config}
+           "retinanet": retinanet_config,
+           "rrnet_hrnetv2_attention": rrnet_hrnetv2_attention_config}
 
 
 def set_by_path(cfg: Any, path: str, value: Any) -> Any:

@@ -1,9 +1,13 @@
-"""Stacked hourglass, plain variant (port of
-`rrnet_tpu/models/backbones/hourglass.py:31-219`), NCHW.
+"""Stacked hourglass (port of `rrnet_tpu/models/backbones/hourglass.py:
+31-219`), NCHW: the plain variant, `dense=True` (each stack's output
+also adds the stem feature and every earlier stack's output) and
+`se=True, pool_stem=True` (squeeze-excitation in every residual block,
+a stride-1 stem residual then a 2x2 max-pool, and the stack's out conv
+keeping its ReLU).
 
-Module names follow the flax scopes (`pre_conv`, `hg0.up1_0.conv1`, ...)
-so that `utils.from_flax` maps the JAX package's parameter tree by name.
-The dense and squeeze-excitation variants are not ported yet.
+Module names follow the flax scopes (`pre_conv`, `hg0.up1_0.conv1`,
+`hg0.up1_0.se.fc1`, ...) so that `utils.from_flax` maps the JAX
+package's parameter tree by name.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import BatchNorm, Conv2d, ConvBN, stem_conv
+from rrnet_torch.models.layers import (BatchNorm, Conv2d, ConvBN, Linear,
+                                       max_pool, stem_conv)
 
 
 def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
@@ -27,26 +32,48 @@ def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.floor(pos * n_in / n_out).long()
 
 
+def resize_nearest(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C, oh, ow) by `jax.image.resize(method=
+    "nearest")`'s rule. At exactly 2x (every hourglass level of the
+    768x1408 bucket) it is duplication."""
+    h, w = x.shape[-2:]
+    if (oh, ow) == (2 * h, 2 * w):
+        return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    return (x.index_select(-2, _nearest_index(h, oh, x.device))
+            .index_select(-1, _nearest_index(w, ow, x.device)))
+
+
 def upsample2x_nearest_add(low3: torch.Tensor, up1: torch.Tensor) -> torch.Tensor:
     """up1 + nearest upsample of low3 to up1's size (reference
-    hourglass.py:110-124). At exactly 2x (every level of the 768x1408
-    bucket) the upsample is duplication; otherwise JAX's resize rule."""
-    h2, w2 = low3.shape[-2:]
-    oh, ow = up1.shape[-2:]
-    if (oh, ow) == (2 * h2, 2 * w2):
-        up = low3.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
-        return up1 + up
-    iy = _nearest_index(h2, oh, low3.device)
-    ix = _nearest_index(w2, ow, low3.device)
-    return up1 + low3.index_select(-2, iy).index_select(-1, ix)
+    hourglass.py:110-124)."""
+    return up1 + resize_nearest(low3, *up1.shape[-2:])
+
+
+class SELayer(nn.Module):
+    """Squeeze-excitation (reference se_hourglass.py:12-27): the channel
+    mean, Dense(c/16) + ReLU, Dense(c) + sigmoid, a channel scale. The
+    flax Dense layers have no bias and flax's lecun-normal init."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 dtype=torch.float32):
+        super().__init__()
+        self.fc1 = Linear(channels, channels // reduction, bias=False,
+                          init="lecun", dtype=dtype)
+        self.fc2 = Linear(channels // reduction, channels, bias=False,
+                          init="lecun", dtype=dtype)
+
+    def forward(self, x):
+        y = F.relu(self.fc1(x.mean(dim=(-2, -1))))
+        y = torch.sigmoid(self.fc2(y))
+        return x * y[:, :, None, None]
 
 
 class HGResidual(nn.Module):
-    """3x3(s)-BN-relu-3x3-BN with a 1x1(s)-BN skip when the shape changes
-    (reference hourglass.py:12-40)."""
+    """3x3(s)-BN-relu-3x3-BN (-SE) with a 1x1(s)-BN skip when the shape
+    changes (reference hourglass.py:12-40, se_hourglass.py:30-60)."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 dtype=torch.float32):
+                 se: bool = False, dtype=torch.float32):
         super().__init__()
         self.conv1 = Conv2d(cin, features, 3, stride, 1, bias=False,
                             dtype=dtype)
@@ -54,6 +81,7 @@ class HGResidual(nn.Module):
         self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False,
                             dtype=dtype)
         self.bn2 = BatchNorm(features)
+        self.se = SELayer(features, dtype=dtype) if se else None
         if stride != 1 or cin != features:
             self.skip_conv = Conv2d(cin, features, 1, stride, 0, bias=False,
                                     dtype=dtype)
@@ -64,6 +92,8 @@ class HGResidual(nn.Module):
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
+        if self.se is not None:
+            out = self.se(out)
         skip = x if self.skip_conv is None else self.skip_bn(self.skip_conv(x))
         return F.relu(out + skip)
 
@@ -73,8 +103,10 @@ class Hourglass(nn.Module):
     nearest x2 up path (reference hourglass.py:64-124)."""
 
     def __init__(self, n: int, inplanes: Sequence[int],
-                 layer_nums: Sequence[int], cin: int, dtype=torch.float32):
+                 layer_nums: Sequence[int], cin: int, se: bool = False,
+                 dtype=torch.float32):
         super().__init__()
+        kw = dict(se=se, dtype=dtype)
         cur, nxt = inplanes[0], inplanes[1]
         cur_num, nxt_num = layer_nums[0], layer_nums[1]
         self.n = n
@@ -82,20 +114,19 @@ class Hourglass(nn.Module):
         self.nxt_num = nxt_num
         for i in range(cur_num):
             self.add_module(f"up1_{i}", HGResidual(cin if i == 0 else cur,
-                                                   cur, dtype=dtype))
-        self.add_module("low1_0", HGResidual(cin, nxt, stride=2, dtype=dtype))
+                                                   cur, **kw))
+        self.add_module("low1_0", HGResidual(cin, nxt, stride=2, **kw))
         for i in range(1, cur_num):
-            self.add_module(f"low1_{i}", HGResidual(nxt, nxt, dtype=dtype))
+            self.add_module(f"low1_{i}", HGResidual(nxt, nxt, **kw))
         if n > 1:
             self.low2 = Hourglass(n - 1, inplanes[1:], layer_nums[1:], nxt,
-                                  dtype=dtype)
+                                  **kw)
         else:
             for i in range(nxt_num):
-                self.add_module(f"low2_{i}", HGResidual(nxt, nxt, dtype=dtype))
+                self.add_module(f"low2_{i}", HGResidual(nxt, nxt, **kw))
         for i in range(cur_num - 1):
-            self.add_module(f"low3_{i}", HGResidual(nxt, nxt, dtype=dtype))
-        self.add_module(f"low3_{cur_num - 1}",
-                        HGResidual(nxt, cur, dtype=dtype))
+            self.add_module(f"low3_{i}", HGResidual(nxt, nxt, **kw))
+        self.add_module(f"low3_{cur_num - 1}", HGResidual(nxt, cur, **kw))
 
     def forward(self, x):
         up1 = x
@@ -117,27 +148,39 @@ class Hourglass(nn.Module):
 
 
 class HourglassNet(nn.Module):
-    """Stacked hourglass (reference hourglass.py:127-199). Returns one
-    `num_feats`-channel stride-4 NCHW map per stack."""
+    """Stacked hourglass (reference hourglass.py:127-199, and the dense
+    and SE variants). Returns one `num_feats`-channel stride-4 NCHW map
+    per stack; `out_channels` holds their widths."""
 
     def __init__(self, num_stacks: int = 2, depth: int = 5,
                  inplanes: Sequence[int] = (256, 256, 384, 384, 384, 512),
                  layer_nums: Sequence[int] = (2, 2, 2, 2, 2, 4),
                  num_feats: int = 256, in_channels: int = 3,
-                 dtype=torch.float32):
+                 dense: bool = False, se: bool = False,
+                 pool_stem: bool = False, dtype=torch.float32):
         super().__init__()
+        if dense and num_feats != 256:
+            # the stem's 256-channel feature is added to each stack's
+            # output (the JAX model fails there on a broadcast)
+            raise ValueError(f"dense hourglass needs num_feats 256, not "
+                             f"{num_feats}")
         self.num_stacks = num_stacks
         self.num_feats = num_feats
+        self.out_channels = (num_feats,) * num_stacks
+        self.dense = dense
+        self.se = se
+        self.pool_stem = pool_stem
         self.pre_conv = stem_conv(in_channels, 128, dtype=dtype)
         self.pre_bn = BatchNorm(128)
-        self.pre_res = HGResidual(128, 256, stride=2, dtype=dtype)
+        self.pre_res = HGResidual(128, 256, stride=1 if pool_stem else 2,
+                                  se=se, dtype=dtype)
         c0 = inplanes[0]
         cin = 256               # pre_res, then inter_res{i} (c0) feed a stack
         for i in range(num_stacks):
             self.add_module(f"hg{i}", Hourglass(depth, inplanes, layer_nums,
-                                                cin, dtype=dtype))
+                                                cin, se=se, dtype=dtype))
             self.add_module(f"out_conv{i}",
-                            ConvBN(c0, num_feats, 3, with_relu=False,
+                            ConvBN(c0, num_feats, 3, with_relu=se,
                                    dtype=dtype))
             if i < num_stacks - 1:
                 self.add_module(f"inter{i}", ConvBN(cin, c0, 1,
@@ -146,17 +189,24 @@ class HourglassNet(nn.Module):
                 self.add_module(f"fuse{i}", ConvBN(num_feats, c0, 1,
                                                    with_relu=False,
                                                    dtype=dtype))
-                self.add_module(f"inter_res{i}", HGResidual(c0, c0,
+                self.add_module(f"inter_res{i}", HGResidual(c0, c0, se=se,
                                                             dtype=dtype))
                 cin = c0
 
     def forward(self, x) -> List[torch.Tensor]:
         x = F.relu(self.pre_bn(self.pre_conv(x)))
         pre_feat = self.pre_res(x)
+        if self.pool_stem:
+            pre_feat = max_pool(pre_feat, 2, 2, 0)
         outs = []
+        skips = [pre_feat]
         for i in range(self.num_stacks):
             feat = getattr(self, f"hg{i}")(pre_feat)
             feat = getattr(self, f"out_conv{i}")(feat)
+            if self.dense:
+                for sf in skips:
+                    feat = feat + sf
+                skips.append(feat)
             outs.append(feat)
             feat = F.relu(feat)
             if i < self.num_stacks - 1:

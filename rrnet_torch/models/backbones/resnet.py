@@ -30,6 +30,7 @@ class ResNet(nn.Module):
                             dtype=dtype)
         self.bn1 = BatchNorm(64)
         cin = 64
+        self.out_channels = (256, 512, 1024, 2048)
         self.stages = []
         for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
                                                      layers)):

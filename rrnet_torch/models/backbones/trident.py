@@ -159,6 +159,7 @@ class TridentResNet(nn.Module):
                 "uncast, so it fails for other activation dtypes too")
         layers = (3, 4, 23, 3) if depth == 101 else (3, 4, 6, 3)
         self.layers = layers
+        self.out_channels = (256, 512, 1024, 2048)
         # the plain 7x7/s2 stem: the JAX package's space-to-depth form of
         # it is a TPU layout with the same math
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, init="msra")

@@ -22,8 +22,9 @@ def build_model(cfg: Config, device: Union[str, torch.device] = "cuda",
     """The configured detector in eval mode on `device`, its weights drawn
     on the CPU from `generator` (default: seeded with cfg.seed), so one
     seed gives the same weights on every machine. Load trained weights
-    with `load_state_dict` (see utils.from_flax). 'rrnet', 'centernet'
-    and 'retinanet' are ported."""
+    with `load_state_dict` (see utils.from_flax). 'rrnet' (with the
+    self-attention where `model.with_self_attention` is set),
+    'centernet' and 'retinanet' are ported."""
     dev = resolve_device(device)
     m = cfg.model
     if m.name == "centernet":
@@ -37,8 +38,6 @@ def build_model(cfg: Config, device: Union[str, torch.device] = "cuda",
                           dtype=dtype_of(m.dtype))
     elif m.name != "rrnet":
         raise NotImplementedError(f"model {m.name!r} is not ported yet")
-    elif m.with_self_attention:
-        raise NotImplementedError("self-attention is not ported yet")
     else:
         model = RRNet(
             num_classes=cfg.num_classes, num_stacks=m.num_stacks,
@@ -47,7 +46,7 @@ def build_model(cfg: Config, device: Union[str, torch.device] = "cuda",
             nms_per_class=m.nms_per_class_for_stage1,
             nms_iou=m.stage1_nms_iou, soft_nms_sigma=m.soft_nms.sigma,
             soft_nms_score_threshold=m.soft_nms.score_threshold,
-            dtype=dtype_of(m.dtype))
+            with_attention=m.with_self_attention, dtype=dtype_of(m.dtype))
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

@@ -1,7 +1,8 @@
 """CenterNet detector (port of `rrnet_tpu/models/centernet.py:18-44`,
 reference models/centernet.py:8-33).
 
-Stacked backbone -> per stack relu -> heatmap (num_classes channels),
+Backbone (its first `num_stacks` maps, each head at its map's width) ->
+per stack relu -> heatmap (num_classes channels),
 wh (the asymmetric 17x1 / 1x17 head, 2 channels) and offset (2 channels)
 heads. Returns per-stack tuples of NHWC maps; the decode lives in
 `ops.heatmap` and the evaluator. Module names follow the flax scopes
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.backbones import get_backbone
+from rrnet_torch.models.backbones import get_backbone, stack_widths
 from rrnet_torch.models.heads import CenterNetHead, CenterNetWHHead
 
 
@@ -26,12 +27,12 @@ class CenterNet(nn.Module):
         super().__init__()
         self.num_stacks = num_stacks
         self.backbone = get_backbone(backbone, num_stacks, dtype=dtype)
-        feats = self.backbone.num_feats
+        widths = stack_widths(self.backbone, num_stacks, backbone)
         self.hm = CenterNetHead(num_classes, num_stacks, is_heatmap=True,
-                                in_channels=feats, dtype=dtype)
+                                in_channels=widths, dtype=dtype)
         self.wh = CenterNetWHHead(1, num_stacks, kernel=wh_kernel,
-                                  in_channels=feats, dtype=dtype)
-        self.reg = CenterNetHead(2, num_stacks, in_channels=feats,
+                                  in_channels=widths, dtype=dtype)
+        self.reg = CenterNetHead(2, num_stacks, in_channels=widths,
                                  dtype=dtype)
 
     def forward(self, x: torch.Tensor):

@@ -9,12 +9,26 @@ under the flax scope names (`conv{stack}`, `out{stack}`, `hconv{stack}`,
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple, Union
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from rrnet_torch.models.layers import (Bottleneck, Conv2d, Linear, conv2d,
                                        torch_conv_init_)
+
+
+def per_stack(in_channels: Union[int, Sequence[int]],
+              num_stacks: int) -> Tuple[int, ...]:
+    """One input width per stack: an int is every stack's width."""
+    if isinstance(in_channels, int):
+        return (in_channels,) * num_stacks
+    widths = tuple(in_channels)
+    if len(widths) != num_stacks:
+        raise ValueError(f"{len(widths)} input widths for {num_stacks} "
+                         "stacks")
+    return widths
 
 
 class ConvParam(nn.Module):
@@ -36,15 +50,17 @@ class ConvParam(nn.Module):
 
 class CenterNetHead(nn.Module):
     """Per stack: 3x3 conv (bias, no BN) + relu, then the 1x1 out conv as
-    a matmul. Heatmap heads start their bias at -2.19."""
+    a matmul. Heatmap heads start their bias at -2.19. `in_channels`:
+    one width, or one per stack (flax infers each from its map)."""
 
     def __init__(self, planes: int, num_stacks: int = 2,
                  is_heatmap: bool = False, mid_channels: int = 256,
-                 in_channels: int = 256, dtype=torch.float32):
+                 in_channels: Union[int, Sequence[int]] = 256,
+                 dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
-        for i in range(num_stacks):
-            self.add_module(f"conv{i}", Conv2d(in_channels, mid_channels, 3,
+        for i, cin in enumerate(per_stack(in_channels, num_stacks)):
+            self.add_module(f"conv{i}", Conv2d(cin, mid_channels, 3,
                                                1, 1, dtype=dtype))
             self.add_module(f"out{i}", ConvParam(
                 mid_channels, planes, 1, 1,
@@ -63,16 +79,18 @@ class CenterNetWHHead(nn.Module):
     a (1,k) row conv predicting W, interleaved W then H per plane
     (reference detectors/centernet_detector.py:47-55: channel 0 is W).
     The JAX package's matmul-plus-shifted-sum form is a TPU layout
-    choice; the asymmetric convs compute the same sums."""
+    choice; the asymmetric convs compute the same sums. `in_channels` as
+    `CenterNetHead`'s."""
 
     def __init__(self, planes: int = 1, num_stacks: int = 2,
                  kernel: int = 17, mid_channels: int = 256,
-                 in_channels: int = 256, dtype=torch.float32):
+                 in_channels: Union[int, Sequence[int]] = 256,
+                 dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.pad = (kernel - 1) // 2
-        for i in range(num_stacks):
-            self.add_module(f"conv{i}", Conv2d(in_channels, mid_channels, 3,
+        for i, cin in enumerate(per_stack(in_channels, num_stacks)):
+            self.add_module(f"conv{i}", Conv2d(cin, mid_channels, 3,
                                                1, 1, dtype=dtype))
             self.add_module(f"hconv{i}", ConvParam(mid_channels, planes,
                                                    kernel, 1))
@@ -95,7 +113,8 @@ class CenterNetWHHead(nn.Module):
 
 class FasterRCNNHead(nn.Module):
     """RRNet stage 2: Bottleneck(64) on the 3x3 ROI feature, mean over the
-    3x3, then Dense(4)."""
+    3x3, then Dense(4). `in_channels`: the width of the map the ROIs are
+    aligned on (the backbone's last)."""
 
     def __init__(self, in_channels: int = 256, dtype=torch.float32):
         super().__init__()

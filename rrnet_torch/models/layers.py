@@ -51,36 +51,39 @@ class _F32Conv(torch.autograd.Function):
     any scope around the forward call has closed."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, stride, padding, dilation):
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
         ctx.save_for_backward(x, weight)
-        ctx.geometry = (_pair(stride), _pair(padding), _pair(dilation))
+        ctx.geometry = (_pair(stride), _pair(padding), _pair(dilation),
+                        groups)
         ctx.has_bias = bias is not None
         with cudnn_f32():
-            return F.conv2d(x, weight, bias, stride, padding, dilation)
+            return F.conv2d(x, weight, bias, stride, padding, dilation,
+                            groups)
 
     @staticmethod
     def backward(ctx, grad):
         x, weight = ctx.saved_tensors
-        stride, padding, dilation = ctx.geometry
+        stride, padding, dilation, groups = ctx.geometry
         need = ctx.needs_input_grad
         with cudnn_f32():
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 grad, x, weight, [weight.shape[0]] if ctx.has_bias else None,
-                stride, padding, dilation, False, [0, 0], 1,
+                stride, padding, dilation, False, [0, 0], groups,
                 [need[0], need[1], ctx.has_bias and need[2]])
-        return gx, gw, gb, None, None, None
+        return gx, gw, gb, None, None, None, None
 
 
-def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1):
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
     """`F.conv2d`; for f32 inputs, at f32 precision in the forward and,
     through `_F32Conv`, in the backward. Other dtypes run as given."""
     if x.dtype != torch.float32:
-        return F.conv2d(x, weight, bias, stride, padding, dilation)
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, weight, bias)):
-        return _F32Conv.apply(x, weight, bias, stride, padding, dilation)
+        return _F32Conv.apply(x, weight, bias, stride, padding, dilation,
+                              groups)
     with cudnn_f32():
-        return F.conv2d(x, weight, bias, stride, padding, dilation)
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
 
 
 def torch_conv_init_(w: torch.Tensor, fan_in: int,
@@ -110,23 +113,31 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 class Conv2d(nn.Module):
     """Conv with an OIHW f32 weight, computed in `dtype` (the f32/bf16
-    path of the JAX Conv2d; its int8 path is not ported yet)."""
+    path of the JAX Conv2d; its int8 path is not ported yet). `groups`
+    is flax's `feature_group_count`: the weight is (cout, cin / groups,
+    kh, kw) and the torch init's fan-in counts cin / groups, as flax's
+    does on that kernel."""
 
     def __init__(self, cin: int, cout: int, kernel, stride=1, padding=0,
                  bias: bool = True, init: str = "torch",
-                 dtype: torch.dtype = torch.float32, dilation: int = 1):
+                 dtype: torch.dtype = torch.float32, dilation: int = 1,
+                 groups: int = 1):
         super().__init__()
         kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+        if cin % groups or cout % groups:
+            raise ValueError(f"groups {groups} must divide cin {cin} and "
+                             f"cout {cout}")
         self.stride = stride
         self.padding = padding
         self.dilation = dilation
+        self.groups = groups
         self.init = init
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
     def reset_parameters_from(self, generator: torch.Generator) -> None:
-        cout, cin, kh, kw = self.weight.shape
+        cout, cin, kh, kw = self.weight.shape       # cin per group
         if self.init == "msra":
             msra_init_(self.weight, kh * kw * cout, generator)
         elif self.init == "zeros":
@@ -139,7 +150,7 @@ class Conv2d(nn.Module):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
-                      self.stride, self.padding, self.dilation)
+                      self.stride, self.padding, self.dilation, self.groups)
 
 
 class BatchNorm(nn.Module):
@@ -164,8 +175,15 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         if self.training:
             return self._train_forward(x)
+        mean = self.running_mean
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            # autograd saves `mean` for the gradient of `mul`; a copy, so
+            # that a train-mode BN updating its statistics in place later
+            # in the same forward (they may share one flat tensor, as in
+            # the Trainer's state) does not invalidate the saved tensor
+            mean = mean.clone()
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        add = self.bias - self.running_mean * mul
+        add = self.bias - mean * mul
         return (x * mul.to(x.dtype)[:, None, None]
                 + add.to(x.dtype)[:, None, None])
 
@@ -237,21 +255,35 @@ class Bottleneck(nn.Module):
 
 class Linear(nn.Module):
     """flax Dense: (out, in) f32 weight computed in `dtype`, torch conv
-    init on the kernel, zero bias."""
+    init on the kernel and a zero bias (the JAX package's heads), or
+    with init="lecun" flax's own default kernel init, lecun-normal
+    (`nn.Dense` left at its defaults); `bias=False` for `use_bias=False`."""
 
-    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 init: str = "torch", dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.init = init
         self.weight = nn.Parameter(torch.empty(cout, cin))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
     def reset_parameters_from(self, generator: torch.Generator) -> None:
-        torch_conv_init_(self.weight, self.weight.shape[1], generator)
-        nn.init.zeros_(self.bias)
+        fan_in = self.weight.shape[1]
+        if self.init == "lecun":
+            # variance_scaling(1, fan_in, truncated_normal): the normal
+            # cut at two deviations, rescaled to unit variance
+            std = math.sqrt(1.0 / fan_in) / .87962566103423978
+            with torch.no_grad():
+                nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std,
+                                      2 * std, generator=generator)
+        else:
+            torch_conv_init_(self.weight, fan_in, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
 def max_pool(x, window: int, stride: int, padding: int):

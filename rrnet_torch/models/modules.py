@@ -1,18 +1,17 @@
-"""Shared model modules, NCHW (port of `rrnet_tpu/models/modules.py:30-52`):
-the 3-level FPN and the bilinear resize that it and the Evaluator use.
-
-The JAX package's windowed `SelfAttentionModule` is not ported yet.
+"""Shared model modules, NCHW (port of `rrnet_tpu/models/modules.py:30-132`):
+the 3-level FPN, the windowed `SelfAttentionModule`, and the bilinear
+resize that they and the Evaluator use.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import Conv2d
+from rrnet_torch.models.layers import BatchNorm, Conv2d, max_pool
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -49,3 +48,82 @@ class FPN(nn.Module):
         p4 = self.top4(resize_bilinear(p5, c4.shape[-2:]) + self.lat4(c4))
         p3 = self.top3(resize_bilinear(p4, c3.shape[-2:]) + self.lat3(c3))
         return p3, p4, p5
+
+
+class SelfAttentionModule(nn.Module):
+    """Local windowed self-attention (reference modules/self_attention.py
+    :7-102; the JAX package's `SelfAttentionModule`). Each query pixel,
+    taken at its window's centre, attends over the k x k dilated window
+    of keys and values around it: softmax over the k*k taps of the
+    unscaled dot products, then the weighted sum of the values.
+
+    Key and query towers: (1x1 conv with bias, BN, ReLU) twice; value: a
+    1x1 conv. The towers are flax `nn.Conv`: torch's kernel init and a
+    zero bias, as `Conv2d`. The output projection `W` (1x1) starts at
+    zero, kernel and bias, so a freshly built module adds exactly 0. The
+    result is resized back to the input size (the identity at stride 1
+    with "same" padding). Scopes: `f_key_conv1`, `f_key_bn1`, ...,
+    `f_query_*`, `f_value`, `W`.
+
+    The JAX package unfolds the windows (`conv_general_dilated_patches`,
+    a (B, k*k*C, oh, ow) tensor: 25x the map at RRNet's k = 5). Here each
+    tap is a strided view of the zero-padded map, taken in the same
+    (row, column) order: per tap one product and channel sum for the
+    logits, one product and add for the values, so no window tensor is
+    made. The weighted sum of the values accumulates in f32.
+    """
+
+    def __init__(self, in_channels: int, key_channels: int = 64,
+                 value_channels: int = 64,
+                 out_channels: Optional[int] = None, kernel_size: int = 1,
+                 dilation: int = 1, padding: int = 0, stride: int = 1,
+                 scale: int = 1, dtype=torch.float32):
+        super().__init__()
+        self.kernel_size, self.dilation = kernel_size, dilation
+        self.padding, self.stride, self.scale = padding, stride, scale
+        for name in ("f_key", "f_query"):
+            self.add_module(f"{name}_conv1", Conv2d(in_channels, key_channels,
+                                                    1, dtype=dtype))
+            self.add_module(f"{name}_bn1", BatchNorm(key_channels))
+            self.add_module(f"{name}_conv2", Conv2d(key_channels,
+                                                    key_channels, 1,
+                                                    dtype=dtype))
+            self.add_module(f"{name}_bn2", BatchNorm(key_channels))
+        self.f_value = Conv2d(in_channels, value_channels, 1, dtype=dtype)
+        self.W = Conv2d(value_channels, out_channels or in_channels, 1,
+                        init="zeros", dtype=dtype)
+
+    def _tower(self, x, name):
+        y = F.relu(getattr(self, f"{name}_bn1")(
+            getattr(self, f"{name}_conv1")(x)))
+        return F.relu(getattr(self, f"{name}_bn2")(
+            getattr(self, f"{name}_conv2")(y)))
+
+    def forward(self, x):
+        in_hw = tuple(x.shape[-2:])
+        if self.scale > 1:
+            x = max_pool(x, self.scale, self.scale, 0)
+        key = self._tower(x, "f_key")
+        query = self._tower(x, "f_query")
+        value = self.f_value(x)
+        k, d, p, s = self.kernel_size, self.dilation, self.padding, self.stride
+        oh = (x.shape[-2] + 2 * p - d * (k - 1) - 1) // s + 1
+        ow = (x.shape[-1] + 2 * p - d * (k - 1) - 1) // s + 1
+        key = F.pad(key, (p, p, p, p))
+        value = F.pad(value, (p, p, p, p))
+
+        def tap(m, i, j):        # the (i, j) tap of every window
+            return m[:, :, i * d:i * d + s * (oh - 1) + 1:s,
+                     j * d:j * d + s * (ow - 1) + 1:s]
+
+        taps = [(i, j) for i in range(k) for j in range(k)]
+        # the query at each window's centre (self_attention.py:84-88)
+        start = d * (k // 2) - p
+        q = query[:, :, start::s, start::s][:, :, :oh, :ow]
+        sim = torch.stack([(tap(key, i, j) * q).sum(1) for i, j in taps], 1)
+        sim = torch.softmax(sim, dim=1)                  # (B, k*k, oh, ow)
+        context = None
+        for t, (i, j) in enumerate(taps):
+            c = (tap(value, i, j) * sim[:, t:t + 1]).float()
+            context = c if context is None else context + c
+        return resize_bilinear(self.W(context.to(value.dtype)), in_hw)

@@ -1,17 +1,20 @@
 """RRNet, the hybrid two-stage detector (port of
 `rrnet_tpu/models/rrnet.py:30-184`), eval and train forward.
 
-Stage 1: stacked-hourglass CenterNet heads per stack; the last stack is
-decoded to top-k candidates, NMS'd per image on the device (hard NMS by
-the CUDA kernel of `ops/hard_nms.py`, or soft-NMS by the CUDA kernels of
-`ops/soft_nms.py` through `soft_nms_auto`), and cut to a static budget of
-R ROIs. Stage 2: 3x3
-ROI-align over relu(last feature) and a bottleneck regressor. Decode, NMS
-and ROI-align run in f32 whatever the compute dtype; in train mode the
-last feature is cast to f32 before ROI-align, so that its backward
-scatter-adds in f32. Gradients reach the wh and offset heads through the
-ROI coordinates, as in the JAX package; the NMS and the top-R choice run
-on detached tensors.
+Stage 1: CenterNet heads on each stack's map (the backbone's first
+`num_stacks` maps, each head at its map's width), optionally with a
+windowed self-attention added residually to each (`with_attention`, the
+`rrnet_hrnetv2_attention` preset); the last stack is decoded to top-k
+candidates, NMS'd per image on the device (hard NMS by the CUDA kernel of
+`ops/hard_nms.py`, or soft-NMS by the CUDA kernels of `ops/soft_nms.py`
+through `soft_nms_auto`), and cut to a static budget of R ROIs. Stage 2:
+3x3 ROI-align over relu(the backbone's last map) and a bottleneck
+regressor; for HRNetV2 that is its fourth map (320 channels), not stack
+1's. Decode, NMS and ROI-align run in f32 whatever the compute dtype; in
+train mode the last map is cast to f32 before ROI-align, so that its
+backward scatter-adds in f32. Gradients reach the wh and offset heads
+through the ROI coordinates, as in the JAX package; the NMS and the top-R
+choice run on detached tensors.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.backbones import get_backbone
+from rrnet_torch.models.backbones import get_backbone, stack_widths
 from rrnet_torch.models.heads import CenterNetHead, CenterNetWHHead, FasterRCNNHead
+from rrnet_torch.models.modules import SelfAttentionModule
 from rrnet_torch.ops.heatmap import topk_decode, topk_desc
 from rrnet_torch.ops.hard_nms import hard_nms
 from rrnet_torch.ops.roi_align import roi_align
@@ -61,7 +65,8 @@ class RRNet(nn.Module):
                  nms_type: str = "nms", nms_per_class: bool = True,
                  nms_iou: float = 0.7, soft_nms_sigma: float = 0.5,
                  soft_nms_score_threshold: float = 0.1,
-                 dtype=torch.float32):
+                 with_attention: bool = False, attention_kernel: int = 5,
+                 attention_dilation: int = 6, dtype=torch.float32):
         super().__init__()
         if nms_type not in ("nms", "soft_nms"):
             raise ValueError(f"unknown stage-1 nms_type {nms_type!r}")
@@ -74,15 +79,24 @@ class RRNet(nn.Module):
         self.nms_iou = nms_iou
         self.soft_nms_sigma = soft_nms_sigma
         self.soft_nms_score_threshold = soft_nms_score_threshold
+        self.with_attention = with_attention
         self.backbone = get_backbone(backbone, num_stacks, dtype=dtype)
-        feats = self.backbone.num_feats
+        widths = stack_widths(self.backbone, num_stacks, backbone)
+        if with_attention:
+            pad = attention_dilation * (attention_kernel // 2)
+            for i, c in enumerate(widths):
+                self.add_module(f"attention{i}", SelfAttentionModule(
+                    c, key_channels=64, value_channels=64,
+                    kernel_size=attention_kernel,
+                    dilation=attention_dilation, padding=pad, dtype=dtype))
         self.hm = CenterNetHead(num_classes, num_stacks, is_heatmap=True,
-                                in_channels=feats, dtype=dtype)
+                                in_channels=widths, dtype=dtype)
         self.wh = CenterNetWHHead(1, num_stacks, kernel=wh_kernel,
-                                  in_channels=feats, dtype=dtype)
-        self.offset = CenterNetHead(2, num_stacks, in_channels=feats,
+                                  in_channels=widths, dtype=dtype)
+        self.offset = CenterNetHead(2, num_stacks, in_channels=widths,
                                     dtype=dtype)
-        self.head_detector = FasterRCNNHead(feats, dtype=dtype)
+        self.head_detector = FasterRCNNHead(
+            self.backbone.out_channels[-1], dtype=dtype)
 
     def select_rois(self, boxes, scores, classes):
         """Per image: stage-1 NMS, then the R best kept candidates (lower
@@ -122,6 +136,8 @@ class RRNet(nn.Module):
         hms, whs, offsets = [], [], []
         for i in range(self.num_stacks):
             f = F.relu(feats[i])
+            if self.with_attention:
+                f = f + getattr(self, f"attention{i}")(f)
             hms.append(self.hm(f, i))
             whs.append(self.wh(f, i))
             offsets.append(self.offset(f, i))

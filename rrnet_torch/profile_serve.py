@@ -1,18 +1,21 @@
 """Where a Predictor request's time goes on the card.
 
     python -m rrnet_torch.profile_serve [--requests N] [--nms TYPE]
-        [--config rrnet|retinanet]
+        [--config rrnet|retinanet|rrnet_hrnetv2_attention]
 
 Serves the flagship `rrnet` preset (full width, bf16, seeded random
 weights) with its stage-1 NMS, hard NMS by default or `--nms soft_nms`,
-or the `retinanet` preset (`--config retinanet`; its decode and hard NMS
-run after the model's forward), on one 765x1360 image at a time, as
-`chip_smoke.py` does, and prints, as medians over N requests:
+the `rrnet_hrnetv2_attention` preset likewise, or the `retinanet` preset
+(`--config retinanet`; its decode and hard NMS run after the model's
+forward), on one 765x1360 image at a time, as `chip_smoke.py` does, and
+prints the forward's multiply-adds by part at 768x1408
+(`forward_gmacs`), then, as medians over N requests:
   * request latency without the profiler, and host staging (pad, pack,
     pinned upload);
   * the device span of the forward and of its parts, from CUDA events
-    around them (RRNet: the backbone, the stage-1 heads and the stage-2
-    head, the rest of the forward being decode, NMS and ROI-align;
+    around them (RRNet: the backbone, the attention modules where the
+    preset has them, the stage-1 heads and the stage-2 head, the rest of
+    the forward being decode, NMS and ROI-align;
     RetinaNet: the backbone, the FPN and the two towers over their three
     levels, and apart from the forward its decode + NMS), and the host
     time to issue the forward;
@@ -63,6 +66,45 @@ def _part_timers(model, names):
     return events, host, handles
 
 
+def forward_gmacs(cfg, hw=(768, 1408)) -> dict:
+    """Multiply-adds (G) of one image's forward at `hw` by part, counted
+    by `torch.utils.flop_counter.FlopCounterMode` on meta tensors (no
+    device): RRNet's backbone, attention, stage-1 heads and stage 2 at
+    its full ROI budget (decode and NMS are not counted), or RetinaNet's
+    backbone, FPN and towers."""
+    from torch.utils.flop_counter import FlopCounterMode
+    model = build_model(cfg, device="cpu").float().to("meta")
+    for m in model.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float32
+    out = {}
+
+    def count(name, fn):
+        with FlopCounterMode(display=False) as fc:
+            res = fn()
+        out[name] = out.get(name, 0.0) + fc.get_total_flops() / 2e9
+        return res
+
+    x = torch.empty(1, 3, *hw, device="meta")
+    feats = count("backbone", lambda: model.backbone(x))
+    if cfg.model.name == "retinanet":
+        ps = count("fpn", lambda: model.fpn(*feats[1:]))
+        for p in ps:
+            count("towers", lambda: (model.cls(p), model.loc(p)))
+        return out
+    for i in range(cfg.model.num_stacks):
+        f = torch.relu(feats[i])
+        if getattr(model, "with_attention", False):
+            f = count("attention", lambda: f + getattr(model,
+                                                       f"attention{i}")(f))
+        count("heads", lambda: (model.hm(f, i), model.wh(f, i),
+                                model.offset(f, i)))
+    c = feats[-1].shape[1]
+    rois = torch.empty(cfg.model.stage2_rois, c, 3, 3, device="meta")
+    count("stage2", lambda: model.head_detector(rois))
+    return out
+
+
 def _kernel_ms(fn, n):
     """Device kernel time per call of `fn` under torch.profiler, and the
     profiler's averages."""
@@ -85,7 +127,8 @@ def main(argv=None) -> None:
     ap.add_argument("--nms", choices=("nms", "soft_nms"),
                     default=config.rrnet_config().model.nms_type_for_stage1,
                     help="RRNet's stage-1 NMS (default: the preset's)")
-    ap.add_argument("--config", choices=("rrnet", "retinanet"),
+    ap.add_argument("--config", choices=("rrnet", "retinanet",
+                                         "rrnet_hrnetv2_attention"),
                     default="rrnet")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -96,8 +139,12 @@ def main(argv=None) -> None:
         cfg = config.retinanet_config()
         names = ("backbone", "fpn", "cls", "loc")
     else:
-        cfg = config.rrnet_config(**{"model.nms_type_for_stage1": args.nms})
+        cfg = config.PRESETS[args.config](
+            **{"model.nms_type_for_stage1": args.nms})
         names = ("backbone", "hm", "wh", "offset", "head_detector")
+        if cfg.model.with_self_attention:
+            names = ("backbone", "attention0", "attention1") + names[1:]
+    macs = forward_gmacs(cfg)
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator().manual_seed(cfg.seed))
     pred = Predictor(cfg, model, device="cuda")
@@ -144,9 +191,12 @@ def main(argv=None) -> None:
     if retina:
         decode_ms = _decode_ms(pred, model, fwd_args[0], n)
 
-    what = "retinanet" if retina else f"rrnet, stage-1 {args.nms}"
+    what = "retinanet" if retina else f"{args.config}, stage-1 {args.nms}"
     print(f"{torch.cuda.get_device_name(0)}; {n} requests of 765x1360, "
           f"{what}, transport {cfg.val.transport}; medians in ms")
+    print("forward GMACs at 768x1408 (FlopCounterMode, meta): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in macs.items())
+          + f"; total {sum(macs.values()):.2f}")
     print(f"request latency (no profiler): p50 {lat_ms:.2f}, p90 "
           f"{float(np.percentile(lat, 90)) * 1e3:.2f}, min "
           f"{min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}")

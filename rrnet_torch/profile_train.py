@@ -1,19 +1,23 @@
 """Where a train step's time goes on the card.
 
-    python -m rrnet_torch.profile_train [--iters N] [--config rrnet|retinanet]
+    python -m rrnet_torch.profile_train [--iters N]
+        [--config rrnet|retinanet|rrnet_hrnetv2_attention]
 
 Builds `train.Trainer` on the `rrnet` preset at full width (hourglass-104,
 2 stacks, bf16 compute, f32 parameters and Adam state, the preset's
-stage-1 hard NMS, stage 2 from step 0), or on the `retinanet` preset
-(`--config retinanet`: ResNet-50, FPN-256, the two towers, bf16), with
+stage-1 hard NMS, stage 2 from step 0), on the `rrnet_hrnetv2_attention`
+preset likewise (HRNetV2-w40 with frozen BN statistics, the attention on
+both stacks), or on the `retinanet` preset (`--config retinanet`:
+ResNet-50, FPN-256, the two towers, bf16), with
 seeded weights, and one seeded synthetic batch of 4 uint8 512x512 crops
 with 100-250 boxes each (`synthetic_batch`, as `chip_smoke.py` drives
 it). It prints, as medians over N steps after 2 warm-ups:
   * wall time per step without the profiler (host clock around a step
     that ends in a synchronize), and the peak device memory;
   * the device span of each phase, from CUDA events: the forward and, in
-    it, the backbone, the heads (RRNet: the stage-1 heads, the rest being
-    decode, NMS, ROI-align and stage 2; RetinaNet: the FPN and the two
+    it, the backbone, the heads (RRNet: the attention modules where the
+    preset has them and the stage-1 heads, the rest being decode, NMS,
+    ROI-align and stage 2; RetinaNet: the FPN and the two
     towers over their three levels); the targets and losses; the
     backward with the gradient flatten; the Adam update;
   * kernel time per step from `torch.profiler`, the device's busy share
@@ -39,7 +43,7 @@ def train_config(name: str = "rrnet"):
     gradient run within a few steps)."""
     if name == "retinanet":
         return config.retinanet_config()
-    return config.rrnet_config(**{"train.stage2_warmup_steps": 0})
+    return config.PRESETS[name](**{"train.stage2_warmup_steps": 0})
 
 
 def synthetic_batch(rng: np.random.RandomState, b: int = 4,
@@ -105,7 +109,8 @@ def main(argv=None) -> None:
     from rrnet_torch.train import Trainer
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--config", choices=("rrnet", "retinanet"),
+    ap.add_argument("--config", choices=("rrnet", "retinanet",
+                                         "rrnet_hrnetv2_attention"),
                     default="rrnet")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -114,6 +119,8 @@ def main(argv=None) -> None:
     cfg = train_config(args.config)
     retina = args.config == "retinanet"
     heads = ("fpn", "cls", "loc") if retina else ("hm", "wh", "offset")
+    if cfg.model.with_self_attention:
+        heads = ("attention0", "attention1") + heads
     trainer = Trainer(cfg, device="cuda")
     state = trainer.init_state(generator=torch.Generator().manual_seed(
         cfg.seed))
@@ -171,7 +178,8 @@ def main(argv=None) -> None:
     p50 = float(np.median(wall))
     head_ms = sum(ms[k] for k in heads)
     what = ("retinanet preset, bf16" if retina else
-            f"rrnet preset, bf16, {cfg.model.nms_type_for_stage1} stage 1")
+            f"{args.config} preset, bf16, {cfg.model.nms_type_for_stage1} "
+            "stage 1")
     print(f"{torch.cuda.get_device_name(0)}; {what}, batch 4x512x512, "
           f"{int(batch['valid'].sum())} boxes; medians over {n} steps after "
           "2 warm-ups, ms")
@@ -179,9 +187,8 @@ def main(argv=None) -> None:
           f"{max(wall):.2f}); peak memory {peak / 2**30:.2f} GiB")
     rest = ms["forward"] - ms["backbone"] - head_ms
     parts = (", ".join(f"{k} {ms[k]:.2f}" for k in heads)
-             + f", the rest {rest:.2f}" if retina else
-             f"stage-1 heads {head_ms:.2f}, decode+NMS+ROI-align+stage 2 "
-             f"{rest:.2f}")
+             + (f", the rest {rest:.2f}" if retina else
+                f"; decode+NMS+ROI-align+stage 2 {rest:.2f}"))
     print(f"device span: step {ms['step']:.2f}; forward {ms['forward']:.2f} "
           f"(backbone {ms['backbone']:.2f}, {parts}); targets+losses "
           f"{ms['targets+losses']:.2f}; backward {float(np.median(back)):.2f};"

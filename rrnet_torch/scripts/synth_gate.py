@@ -1,8 +1,9 @@
-"""Synthetic train -> eval -> AP gate for the rrnet, centernet and
-retinanet families (port of `scripts/synth_gate.py`'s rows):
+"""Synthetic train -> eval -> AP gate for the rrnet, centernet,
+retinanet and rrnet_hrnetv2_attention families (port of
+`scripts/synth_gate.py`'s rows; the JAX gate has no row for the fourth):
 
     python -m rrnet_torch.scripts.synth_gate
-        [--family rrnet|centernet|retinanet]
+        [--family rrnet|centernet|retinanet|rrnet_hrnetv2_attention]
         [--steps N] [--batch 8] [--dir DIR] [--out SYNTH_AP_torch.json]
         [--device cuda] [key=value ...]
 
@@ -13,7 +14,8 @@ through the whole input pipeline (`TrainLoader` -> `DevicePrefetcher` ->
 val images (scale 1, no flip, batch 4) and `evaluate_results`. The JAX
 gate's schedules: rrnet 1600 steps with stage 2 gated off for the first
 steps // 4, scored for three decodes of the same weights (the full
-stage-2 re-regression, the stage-1 ROIs alone, all-zero deltas);
+stage-2 re-regression, the stage-1 ROIs alone, all-zero deltas), and
+rrnet_hrnetv2_attention (an RRNet) likewise;
 centernet 400 steps, one decode; retinanet 1600 steps, one decode (no
 host merge). `seed=S` among the overrides draws other weights,
 permutations and samples; the set stays seed 219.
@@ -47,11 +49,14 @@ from rrnet_torch.train import Trainer
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 N_TRAIN, N_VAL, SEED = 32, 8, 219
-DECODES = {"rrnet": (("rrnet", "full"), ("stage1_only", "stage1"),
-                     ("zero_delta", "zero")),
+_RRNET_DECODES = (("stage1_only", "stage1"), ("zero_delta", "zero"))
+DECODES = {"rrnet": (("rrnet", "full"),) + _RRNET_DECODES,
            "centernet": (("centernet", "full"),),
-           "retinanet": (("retinanet", "full"),)}
-STEPS = {"rrnet": 1600, "centernet": 400, "retinanet": 1600}
+           "retinanet": (("retinanet", "full"),),
+           "rrnet_hrnetv2_attention": (("rrnet_hrnetv2_attention", "full"),)
+           + _RRNET_DECODES}
+STEPS = {"rrnet": 1600, "centernet": 400, "retinanet": 1600,
+         "rrnet_hrnetv2_attention": 1600}
 METRICS = ("AP", "AP50", "AP75", "AR")
 
 
@@ -78,7 +83,8 @@ def run(args) -> dict:
     overrides = [f"data_root={args.dir}", f"train.batch_size={args.batch}",
                  f"train.iter_num={steps}", "val.scales=(1.0,)",
                  "val.flip_tta=False"]
-    if family == "rrnet":
+    rrnet = cfglib.PRESETS[family]().model.name == "rrnet"
+    if rrnet:
         # the reference gates stage 2 off for the first 2000 of 100k
         # steps; scaled to this schedule
         overrides.append(f"train.stage2_warmup_steps={steps // 4}")
@@ -125,7 +131,7 @@ def run(args) -> dict:
                        "wait_for_batches_s": wait,
                        "loader_share": wait / train_s,
                        "loader_skips": train_loader.skips}}
-    if family == "rrnet":
+    if rrnet:
         entry["train"]["stage2_warmup_steps"] = steps // 4
     for tag, decode in DECODES[family]:
         ev = Evaluator(cfg, model, device=trainer.device,
@@ -199,7 +205,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--family", default="rrnet", choices=sorted(DECODES))
     ap.add_argument("--steps", type=int, default=None,
                     help="train steps (default: rrnet 1600, centernet "
-                    "400, retinanet 1600)")
+                    "400, retinanet 1600, rrnet_hrnetv2_attention 1600)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--dir", default=os.path.join(REPO, "build", "rrnet_synth"),
                     help="where the synthetic set and results are written")

@@ -201,7 +201,10 @@ assert not bad, bad
                 "rrnet_torch.losses", "rrnet_torch.profile_train",
                 "rrnet_torch.models.anchors", "rrnet_torch.models.retinanet",
                 "rrnet_torch.models.modules",
-                "rrnet_torch.models.backbones.resnet"):
+                "rrnet_torch.models.backbones.resnet",
+                "rrnet_torch.models.backbones.hrnet",
+                "rrnet_torch.models.backbones.hrnetv2",
+                "rrnet_torch.models.backbones.shufflenet"):
         assert mod in res.stdout, mod
 
 
