@@ -108,11 +108,32 @@ Phases (any failure exits non-zero before the result line):
      over 8 frames at batch 4 (images/s, peak memory); the preset on a
      small HRNetV2 at 2x3x64x64 f32 and the dense and SE hourglass and
      ShuffleNetV2 0.5x at small size on the card against the CPU; a
-     full-width bf16 forward of each of those three at 1x3x768x1408.
+     full-width bf16 forward of each of those three at 1x3x768x1408;
+ 12. int8 path: the `rrnet` preset at full width (bf16, seeded weights)
+     through `Predictor(quantize="int8")` beside the bf16 `Predictor`:
+     warmup refused before calibration, the calibration on 4 demo frames
+     (162 convs, the JAX package's count), 16 requests each (p50 / p90;
+     a forward launches 162 int8 convs, 162 quantize passes and one
+     hard NMS), the detection agreement with bf16; `evaluate_split` at
+     the six-scale protocol over 8 frames at batch 4, bf16 then int8
+     (images/s, peak memory, launches); the centernet and retinanet
+     presets' calibrated counts at full width (159 and 57);
+ 13. micro-batching: a `MicroBatcher` at its defaults over the bf16
+     `rrnet` Predictor: 32 requests from 4 client threads at once and a
+     closed loop of 16 beside single `predict` calls (requests/s, p50 /
+     p90 from submit to result, the batch sizes), every future's rows
+     held to its frame's single request (97% of the rows within 1e-2 px
+     and 1e-4); then 8 requests with per-class soft-NMS (B.2 once a
+     batch, one batch's ROIs equal to the plain serial soft-NMS's).
+The kernels phase also holds the int8 quantize-and-pack pass and the
+int8 convolution bit-equal to their plain versions at the main path's
+shapes (batch 1 and 4 of the 768x1408 bucket, stage 2 on 4x512 ROIs),
+each timed beside its bound, cuDNN's bf16 convolution and, for 1x1
+stride-1 shapes, `torch._int_mm`.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then JSON lines hold the data path's, the eval protocol's,
-the retinanet path's and the hrnetv2-attention path's numbers, one
-lists every kernel,
+the retinanet path's, the hrnetv2-attention path's, the int8 path's and
+the micro-batching phase's numbers, one lists every kernel,
 and the last line is the result. It exits non-zero without a result when no CUDA device is
 present.
 """
@@ -3215,6 +3236,642 @@ def run_hrnet_attention_path(torch, sn, hn, card):
     return entry, launches
 
 
+# the 768x1408 bucket's quantized convs on the main path (hourglass-104 at
+# stride 4 and its downsampled levels, and stage 2's FasterRCNNHead on the
+# 3x3 ROI features): (label, cin, cout, kernel, stride, h, w, bias)
+INT8_HOURGLASS_SHAPES = [
+    ("pre_res 3x3 s2 128->256", 128, 256, 3, 2, 384, 704, False),
+    ("3x3 s1 256", 256, 256, 3, 1, 192, 352, False),
+    ("3x3 s2 256->256", 256, 256, 3, 2, 192, 352, False),
+    ("3x3 s2 256->384", 256, 384, 3, 2, 96, 176, False),
+    ("3x3 s1 384", 384, 384, 3, 1, 48, 88, False),
+    ("3x3 s2 384->512", 384, 512, 3, 2, 12, 22, False),
+    ("3x3 s1 512", 512, 512, 3, 1, 6, 11, False),
+    ("1x1 s2 skip 256->384", 256, 384, 1, 2, 96, 176, False),
+    ("1x1 s1 skip 512->384", 512, 384, 1, 1, 6, 11, True),
+]
+INT8_ROI_SHAPES = [
+    ("roi conv1 1x1 256->64", 256, 64, 1, 1, 3, 3, False),
+    ("roi conv2 3x3 64", 64, 64, 3, 1, 3, 3, False),
+    ("roi conv3 1x1 64->256", 64, 256, 1, 1, 3, 3, False),
+    ("roi downsample 1x1 256", 256, 256, 1, 1, 3, 3, False),
+]
+INT8_OPS_PER_S = 1979e12        # tensor cores, int8 dense
+# f32 operations a value of the quantize pass: multiply, round, 2 clamps
+QUANTIZE_OPS_PER_VALUE = 4
+
+
+def check_int8_conv(torch, rng, card):
+    """The int8 kernels against their plain versions on the card at the
+    main path's shapes (bf16 in, bf16 out; batch 1 and 4 of the 768x1408
+    bucket, and stage 2 on 4x512 ROIs): quantize_pack's NHWC int8, the
+    conv's int32 accumulators and its dequantized bf16 output (and f32
+    with a bias, once) bit-equal; each timed beside its bound, its plain
+    version, cuDNN's bf16 convolution of the same shape (the conv the
+    int8 path replaces) and, for 1x1 stride-1 shapes, `torch._int_mm` on
+    the NHWC matrix (a yardstick only: the port never calls it). Returns
+    the kernels' two lines."""
+    import torch.nn.functional as F
+    from rrnet_torch.ops import int8_conv as ic
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(int(rng.randint(1 << 30)))
+    cases = ([(n,) + s for s in INT8_HOURGLASS_SHAPES for n in (1, 4)]
+             + [(4 * 512,) + s for s in INT8_ROI_SHAPES])
+    rows = []
+    for n, label, cin, cout, k, stride, h, w, with_bias in cases:
+        x = torch.relu(torch.randn(n, cin, h, w, device=dev, generator=g)
+                       ).to(torch.bfloat16)
+        weight = torch.randn(cout, cin, k, k, device=dev,
+                             generator=g) / (k * k * cin) ** 0.5
+        bias = (torch.randn(cout, device=dev, generator=g) * 0.1
+                if with_bias else None)
+        absmax = float(x.abs().amax())
+        s_in = absmax / 127.0
+        pad = (k - 1) // 2
+        pad4 = (pad,) * 4
+        pw = ic.pack_weight(weight)
+        xq = ic.quantize_pack(x, absmax)
+        acc = ic.int8_conv2d(xq, pw, s_in, None, stride, pad4, torch.int32)
+        y = ic.int8_conv2d(xq, pw, s_in, bias, stride, pad4, torch.bfloat16)
+        torch.cuda.synchronize()
+        xq_ref = ic.quantize_pack_plain(x, absmax)
+        acc_ref = ic.int8_conv2d_plain(xq_ref, pw.wq, pw.s_w, s_in, None,
+                                       stride, pad4, torch.int32)
+        y_ref = ic.int8_conv2d_plain(xq_ref, pw.wq, pw.s_w, s_in, bias,
+                                     stride, pad4, torch.bfloat16)
+        same = (torch.equal(xq, xq_ref), torch.equal(acc, acc_ref),
+                torch.equal(y, y_ref))
+        err = float((y.float() - y_ref.float()).abs().max())
+        if with_bias:
+            y32 = ic.int8_conv2d(xq, pw, s_in, bias, stride, pad4,
+                                 torch.float32)
+            same += (torch.equal(y32, ic.int8_conv2d_plain(
+                xq_ref, pw.wq, pw.s_w, s_in, bias, stride, pad4,
+                torch.float32)),)
+        if not all(same):
+            raise AssertionError(
+                f"int8 kernels differ from their plain versions ({label}, "
+                f"batch {n}): int8 NHWC, int32, bf16 (, f32) equal {same}, "
+                f"largest gap {err:.3g}")
+        ms = cuda_ms(lambda: ic.int8_conv2d(xq, pw, s_in, bias, stride, pad4,
+                                            torch.bfloat16), reps=20)
+        pack_ms = cuda_ms(lambda: ic.quantize_pack(x, absmax), reps=20)
+        plain_ms = cuda_ms(lambda: ic.int8_conv2d_plain(
+            xq_ref, pw.wq, pw.s_w, s_in, bias, stride, pad4,
+            torch.bfloat16), reps=2, warm=1)
+        pack_plain_ms = cuda_ms(lambda: ic.quantize_pack_plain(x, absmax),
+                                reps=5, warm=1)
+        split = device_split(torch, lambda: ic.int8_conv2d(
+            ic.quantize_pack(x, absmax), pw, s_in, bias, stride, pad4,
+            torch.bfloat16), reps=5)
+        dev_ms = sum(v for key, v in split.items()
+                     if "int8_conv" in key or "dequant_kernel" in key)
+        pack_dev_ms = sum(v for key, v in split.items()
+                          if "quantize_pack" in key)
+        wb = weight.to(torch.bfloat16)
+        bb = None if bias is None else bias.to(torch.bfloat16)
+        cudnn_ms = cuda_ms(lambda: F.conv2d(x, wb, bb, stride, pad), reps=20)
+        int_mm_ms = int_mm_note = None
+        if k == 1 and stride == 1:
+            a = xq.view(-1, xq.shape[-1])
+            b = pw.rows[:, :xq.shape[-1]].t()
+            try:
+                mm = torch._int_mm(a, b)
+                torch.cuda.synchronize()
+                int_mm_note = ("equal" if torch.equal(
+                    mm, acc.permute(0, 2, 3, 1).reshape(-1, cout))
+                    else "differs")
+                int_mm_ms = cuda_ms(lambda: torch._int_mm(a, b), reps=20)
+            except RuntimeError as e:
+                int_mm_note = f"refused: {str(e).splitlines()[0][:120]}"
+        ho, wo = acc.shape[-2:]
+        m = n * ho * wo
+        ops = 2.0 * m * cout * k * k * cin
+        nbytes = n * h * w * cin + cout * k * k * cin + m * cout * 2 + 4 * cout
+        bound_ops = ops / INT8_OPS_PER_S * 1e3
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        p_bytes = n * cin * h * w * 2 + n * h * w * xq.shape[-1]
+        p_bound_bytes = p_bytes / HBM_BYTES_PER_S * 1e3
+        p_bound_ops = (n * cin * h * w * QUANTIZE_OPS_PER_VALUE
+                       / F32_FLOPS_PER_S * 1e3)
+        row = {"shape": label, "batch": n, "in": [n, cin, h, w],
+               "out": [n, cout, int(ho), int(wo)], "ms": ms,
+               "device_ms": dev_ms, "pack_device_ms": pack_dev_ms,
+               "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
+               "bound_by": ("operations" if bound_ops >= bound_bytes
+                            else "bytes"),
+               "cudnn_bf16_ms": cudnn_ms, "int_mm_ms": int_mm_ms,
+               "int_mm": int_mm_note, "tops": ops / ms / 1e9,
+               "pack_ms": pack_ms, "pack_plain_ms": pack_plain_ms,
+               "pack_bound_ms": max(p_bound_bytes, p_bound_ops),
+               "pack_bound_by": ("bytes" if p_bound_bytes >= p_bound_ops
+                                 else "operations")}
+        rows.append(row)
+        print(f"  int8 {label} batch {n} ({'x'.join(map(str, row['in']))} "
+              f"-> {'x'.join(map(str, row['out']))}) on {card}: int8 NHWC, "
+              f"int32 accumulators and bf16 output"
+              + (" (and f32 + bias)" if with_bias else "")
+              + f" bit-equal to the plain versions; conv {ms:.4f} ms "
+              f"(device {dev_ms:.4f}; {row['tops']:.1f} TOPS), bound "
+              f"{row['bound_ms']:.4f} "
+              f"({row['bound_by']}), cuDNN bf16 {cudnn_ms:.4f}, plain "
+              f"{plain_ms:.3f}"
+              + (f", torch._int_mm {int_mm_ms:.4f} ({int_mm_note})"
+                 if int_mm_ms is not None else
+                 (f", torch._int_mm {int_mm_note}" if int_mm_note else ""))
+              + f"; quantize_pack {pack_ms:.4f} ms (device "
+              f"{pack_dev_ms:.4f}), bound "
+              f"{row['pack_bound_ms']:.4f}, plain {pack_plain_ms:.4f}",
+              flush=True)
+        del x, xq, xq_ref, acc, acc_ref, y, y_ref
+    main = next(r for r in rows if r["shape"] == "3x3 s1 256"
+                and r["batch"] == 1)
+    total = {key: sum(r[key] for r in rows if r["batch"] == 1)
+             for key in ("ms", "device_ms", "bound_ms", "cudnn_bf16_ms",
+                         "pack_ms", "pack_device_ms")}
+    print(f"  int8 totals over the {sum(r['batch'] == 1 for r in rows)} "
+          f"batch-1 hourglass shapes on {card}: conv {total['ms']:.4f} ms "
+          f"(device {total['device_ms']:.4f}) against cuDNN bf16 "
+          f"{total['cudnn_bf16_ms']:.4f}, bound {total['bound_ms']:.4f}; "
+          f"quantize_pack {total['pack_ms']:.4f} (device "
+          f"{total['pack_device_ms']:.4f})", flush=True)
+    conv = {"name": "int8_conv2d", "route": "cuda",
+            "source": "rrnet_torch/csrc/int8_conv.cu",
+            "replaces": "rrnet_tpu/models/layers.py:166 (not a TPU kernel: "
+                        "XLA's int8 conv_general_dilated)",
+            "launches": None, "max_abs_err": 0.0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["cudnn_bf16_ms"],
+            "device_ms": main["device_ms"],
+            "at": "3x3 s1 256 at 1x256x192x352, bf16 out; library_ms is "
+                  "cuDNN's bf16 F.conv2d",
+            "shapes": rows}
+    pack = {"name": "int8_quantize_pack", "route": "cuda",
+            "source": "rrnet_torch/csrc/int8_conv.cu",
+            "replaces": "rrnet_tpu/models/layers.py:155 (not a TPU kernel: "
+                        "XLA's fused quantize)",
+            "launches": None, "max_abs_err": 0.0, "ms": main["pack_ms"],
+            "plain_ms": main["pack_plain_ms"],
+            "bound_ms": main["pack_bound_ms"],
+            "bound_by": main["pack_bound_by"], "library_ms": None,
+            "device_ms": main["pack_device_ms"],
+            "at": "1x256x192x352 bf16 -> NHWC int8; no one PyTorch call "
+                  "quantizes and transposes"}
+    return conv, pack
+
+
+def int8_counts(torch):
+    """The launch counts of every kernel wrapper, the int8 pair included."""
+    from rrnet_torch.ops import deform_conv as tdc
+    from rrnet_torch.ops import hard_nms as hn
+    from rrnet_torch.ops import int8_conv as ic
+    from rrnet_torch.ops import soft_nms as sn
+    return {"hard_nms": hn.launches, "soft_nms": sn.launches,
+            "soft_nms_classes": sn.classes_launches,
+            "dcn": tdc.fwd_launches + tdc.bwd_launches,
+            "int8_conv2d": ic.launches, "int8_quantize_pack": ic.pack_launches}
+
+
+def zero_int8_counts():
+    from rrnet_torch.ops import deform_conv as tdc
+    from rrnet_torch.ops import hard_nms as hn
+    from rrnet_torch.ops import int8_conv as ic
+    from rrnet_torch.ops import soft_nms as sn
+    hn.launches = sn.launches = sn.classes_launches = 0
+    tdc.fwd_launches = tdc.bwd_launches = 0
+    ic.launches = ic.pack_launches = 0
+
+
+def detection_agreement(preds, preds8):
+    """The share of bf16's strong detections (score > 0.3, or the top 50
+    where none is) with an int8 detection of the same class whose centre
+    lies within 3 px (scripts/bench_int8.py's measure); (share, count)."""
+    agree = total = 0
+    for p, q in zip(preds, preds8):
+        a = p[p[:, 4] > 0.3]
+        if len(a) == 0:
+            a = p[:50]
+        total += len(a)
+        for row in a:
+            c = row[:2] + row[2:4] / 2
+            d = np.linalg.norm(q[:, :2] + q[:, 2:4] / 2 - c, axis=1)
+            j = int(np.argmin(d)) if len(d) else -1
+            if j >= 0 and d[j] < 3.0 and q[j, 5] == row[5]:
+                agree += 1
+    return agree / max(total, 1), total
+
+
+def int8_forward_split(torch, pred, image):
+    """One int8 request's device time by the profiler: the int8 convs
+    (with their split-K epilogues), the quantize passes and all kernels,
+    ms a forward; beside the summed bounds of the 162 convs and quantize
+    passes at the shapes a forward hook records."""
+    from rrnet_torch.models.layers import Conv2d
+    shapes = []
+    model = pred._ev.model
+    hooks = [m.register_forward_hook(
+        lambda m, a, out: shapes.append((tuple(a[0].shape),
+                                         tuple(m.weight.shape),
+                                         tuple(out.shape))))
+             for m in model.modules() if isinstance(m, Conv2d)
+             and m.quantizable and m.groups == 1]
+    with torch.inference_mode():
+        pred.predict(image)
+    for h in hooks:
+        h.remove()
+    split = device_split(torch, lambda: pred.predict(image), reps=3)
+    conv_bound = pack_bound = 0.0
+    for (n, cin, h, w), (cout, _, kh, kw), (_, _, ho, wo) in shapes:
+        if cin < 32:
+            continue
+        ops = 2.0 * n * ho * wo * cout * kh * kw * cin
+        nbytes = n * h * w * cin + cout * kh * kw * cin + n * ho * wo * cout * 2
+        conv_bound += max(ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        pack_bound += max(n * cin * h * w * 3 / HBM_BYTES_PER_S,
+                          n * cin * h * w * QUANTIZE_OPS_PER_VALUE
+                          / F32_FLOPS_PER_S)
+    return {"conv_ms": sum(v for k, v in split.items()
+                           if "int8_conv" in k or "dequant_kernel" in k),
+            "pack_ms": sum(v for k, v in split.items()
+                           if "quantize_pack" in k),
+            "all_kernels_ms": sum(split.values()),
+            "conv_bound_ms": conv_bound * 1e3,
+            "pack_bound_ms": pack_bound * 1e3,
+            "convs": sum(s[0][1] >= 32 for s in shapes)}
+
+
+def serve_times(pred, imgs, passes=2):
+    """Host ms of each single request, `passes` times over `imgs`, and the
+    detections."""
+    ms, outs = [], []
+    for _ in range(passes):
+        for im in imgs:
+            t0 = time.perf_counter()
+            outs.append(pred.predict(im))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, outs
+
+
+def run_int8_path(torch, card):
+    """Phase "int8 path": the `rrnet` preset at full width (bf16, seeded
+    weights) served through `Predictor(quantize="int8")` beside the bf16
+    `Predictor` on the same model: warmup refused before calibration, the
+    calibration on 4 demo frames (162 convs, the JAX package's count),
+    16 requests each (p50 / p90; the int8 run's launches a forward: 162
+    int8 convs, 162 quantize passes, one hard_nms), the detection
+    agreement with bf16; then `evaluate_split` at the preset's six-scale
+    protocol over 8 frames at batch 4, int8 against bf16 (images/s, peak
+    memory, launches); and the calibrated conv counts of the `centernet`
+    and `retinanet` presets at full width on a 128x128 frame. Returns the
+    JSON entry."""
+    import dataclasses
+    import tempfile
+    from rrnet_torch import config as cfglib
+    from rrnet_torch.evallib.infer import Evaluator
+    from rrnet_torch.models import build_model
+    from rrnet_torch.serving import Predictor
+
+    entry = {}
+    cfg = cfglib.rrnet_config()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(cfg.seed))
+    frames = demo_frames(8)
+    imgs = [f["image"] for f in frames]
+    bf = Predictor(cfg, model, device="cuda")
+    i8 = Predictor(cfg, model, device="cuda", quantize="int8")
+    try:
+        i8.warmup()
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("an uncalibrated int8 Predictor warmed up")
+    t0 = time.perf_counter()
+    scales = i8.calibrate(imgs[:4])
+    calib_s = time.perf_counter() - t0
+    if len(scales) != 162:
+        raise AssertionError(f"rrnet int8 calibrated {len(scales)} convs "
+                             "(the JAX package: 162)")
+    bf.warmup()
+    i8.warmup()
+    bf_ms, bf_out = serve_times(bf, imgs)
+    torch.cuda.synchronize()
+    zero_int8_counts()                                   # just before
+    i8_ms, i8_out = serve_times(i8, imgs)
+    torch.cuda.synchronize()
+    counts = int8_counts(torch)                          # just after
+    want = {"hard_nms": 16, "soft_nms": 0, "soft_nms_classes": 0, "dcn": 0,
+            "int8_conv2d": 162 * 16, "int8_quantize_pack": 162 * 16}
+    if counts != want:
+        raise AssertionError(f"int8 serving launched {counts} in 16 "
+                             f"forwards (want {want})")
+    for d in i8_out:
+        check_detections(d, cfg.model.stage2_rois, cfg.num_classes)
+    agree, compared = detection_agreement(bf_out[:8], i8_out[:8])
+    per_forward = int8_forward_split(torch, i8, imgs[0])
+    entry["serve"] = {
+        "calibrated_convs": len(scales), "calibrate_s": calib_s,
+        "bf16_p50_ms": float(np.percentile(bf_ms, 50)),
+        "bf16_p90_ms": float(np.percentile(bf_ms, 90)),
+        "int8_p50_ms": float(np.percentile(i8_ms, 50)),
+        "int8_p90_ms": float(np.percentile(i8_ms, 90)),
+        "launches": counts, "launches_per_forward": {
+            k: v / 16 for k, v in counts.items()},
+        "detection_agreement": agree, "detections_compared": compared,
+        "per_forward": per_forward, "bf16_ms": bf_ms, "int8_ms": i8_ms}
+    s = entry["serve"]
+    print(f"  rrnet int8: warmup refused before calibration; calibrated "
+          f"{len(scales)} convs on 4 demo frames in {calib_s:.2f} s (the "
+          f"JAX package: 162); 16 requests on {card}: int8 p50 "
+          f"{s['int8_p50_ms']:.2f} ms, p90 {s['int8_p90_ms']:.2f}; bf16 "
+          f"p50 {s['bf16_p50_ms']:.2f}, p90 {s['bf16_p90_ms']:.2f}; int8 "
+          f"launches {counts} (a forward: 162 int8 convs, 162 quantize "
+          f"passes, 1 hard_nms); detection agreement with bf16 "
+          f"{agree:.4f} over {compared} detections; a forward's device "
+          f"time (profiler): int8 convs {per_forward['conv_ms']:.4f} ms "
+          f"against their bound {per_forward['conv_bound_ms']:.4f}, "
+          f"quantize passes {per_forward['pack_ms']:.4f} against "
+          f"{per_forward['pack_bound_ms']:.4f}; all kernels "
+          f"{per_forward['all_kernels_ms']:.4f} ms", flush=True)
+
+    # the preset's six-scale protocol, bf16 then int8, same weights
+    tmp = tempfile.TemporaryDirectory()
+    ev = Evaluator(cfg, model, device="cuda")
+    ev8 = Evaluator(cfg, model, device="cuda", quantize="int8")
+    t0 = time.perf_counter()
+    n_six = len(ev8.calibrate(imgs[:4]))
+    calib6_s = time.perf_counter() - t0
+    n_scales = len(cfg.val.scales)
+    for label, e in (("bf16", ev), ("int8", ev8)):
+        out_dir = os.path.join(tmp.name, label)
+        e.evaluate_split(frames[:4], result_dir=out_dir, verbose=False)
+        torch.cuda.synchronize()
+        zero_int8_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        e.evaluate_split(frames, result_dir=out_dir, batch_size=4,
+                         verbose=False)
+        secs = time.perf_counter() - t0
+        counts = int8_counts(torch)
+        peak = torch.cuda.max_memory_allocated()
+        n_q = 162 * n_scales * 2 if label == "int8" else 0
+        want = {"hard_nms": n_scales * 2, "soft_nms": 0,
+                "soft_nms_classes": 0, "dcn": 0, "int8_conv2d": n_q,
+                "int8_quantize_pack": n_q}
+        if counts != want:
+            raise AssertionError(f"{label} six-scale eval launched {counts} "
+                                 f"(want {want})")
+        entry[f"six_scales_{label}"] = {
+            "images_per_s": 8 / secs, "max_memory_allocated_gib":
+            peak / 2**30, "launches": counts}
+        print(f"  rrnet {label}, six scales, 8 frames 765x1360 at batch 4 on "
+              f"{card}: {8 / secs:.2f} images/s, max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB, launches {counts}", flush=True)
+    entry["six_scales_int8"]["calibrated_convs"] = n_six
+    entry["six_scales_int8"]["calibrate_s"] = calib6_s
+    tmp.cleanup()
+    del ev, ev8, bf, i8, model
+
+    # the other presets' calibrated counts at full width, a 128x128 frame
+    small = (np.random.RandomState(3).rand(128, 128, 3) * 255
+             ).astype(np.uint8)
+    entry["other_presets"] = {}
+    for name, jax_count in (("centernet", 159), ("retinanet", 57)):
+        c = cfglib.PRESETS[name]()
+        c = c.replace(val=dataclasses.replace(c.val, scales=(1.0,),
+                                              flip_tta=False))
+        e = Evaluator(c, build_model(c, device="cuda"), device="cuda",
+                      quantize="int8")
+        n_conv = len(e.calibrate([small]))
+        entry["other_presets"][name] = {"calibrated_convs": n_conv,
+                                        "jax_package": jax_count}
+        print(f"  {name} int8 at full width, one 128x128 frame: calibrated "
+              f"{n_conv} convs (the JAX package: {jax_count})", flush=True)
+        if n_conv != jax_count:
+            raise AssertionError(f"{name}: {n_conv} calibrated convs, the "
+                                 f"JAX package {jax_count}")
+        del e
+    return entry
+
+
+def run_microbatching(torch, card):
+    """Phase "micro-batching": a `MicroBatcher` at its defaults (max_batch
+    8, max_delay_ms 4, pipeline_depth 2) over the bf16 `rrnet` Predictor
+    (full width, seeded weights): 32 requests from 4 client threads at
+    once, and a closed loop of 16 beside 16 single `predict` calls; each
+    with requests/s, per-request p50 / p90 (submit to result) and the
+    histogram of batch sizes. Every future's rows are held bit-equal to
+    its frame's rows in `predict_batch` of a group the batcher formed
+    (the closed loop's groups are single requests, so there bit-equal to
+    `predict`), and the share of its rows that match the frame's single
+    request (`match_rows`, 1e-2 px and 1e-4) is reported: a bf16 batch
+    differs from B=1 in a few percent of the rows. Then 8 requests from
+    4 threads with per-class soft-NMS: B.2 launched once a batch, and one
+    batch's ROIs equal to the plain serial soft-NMS's. Returns the JSON
+    entry."""
+    import threading
+    from collections import Counter
+    from rrnet_torch import config as cfglib
+    from rrnet_torch.models import build_model
+    from rrnet_torch.models.rrnet import mask_heatmap_extent
+    from rrnet_torch.ops import soft_nms as sn
+    from rrnet_torch.ops.heatmap import topk_decode, topk_desc
+    from rrnet_torch.serving import MicroBatcher, Predictor
+
+    cfg = cfglib.rrnet_config()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(cfg.seed))
+    pred = Predictor(cfg, model, device="cuda")
+    pred.warmup(batch_sizes=(1, 2, 4, 8))
+    imgs = [f["image"] for f in demo_frames(8)]
+    single_ms, singles = serve_times(pred, imgs)
+    singles = singles[:8]
+    entry = {"single_p50_ms": float(np.percentile(single_ms, 50)),
+             "single_p90_ms": float(np.percentile(single_ms, 90)),
+             "single_requests_per_s": 1e3 / float(np.mean(single_ms))}
+
+    groups = []                 # the image lists the batcher staged
+    stage = pred.stage
+
+    def recording_stage(images):
+        groups.append(list(images))
+        return stage(images)
+
+    pred.stage = recording_stage
+
+    def hold(results, label):
+        """Each future's rows bit-equal to its frame's rows in a
+        predict_batch of one of the staged groups; (least, mean) share of
+        its rows matching the frame's single request."""
+        batched = [(g, pred.predict_batch(g)) for g in groups]
+        shares = []
+        for i, got in results:
+            cands = [rows for g, outs in batched
+                     for im, rows in zip(g, outs) if im is imgs[i]]
+            if not any(r.shape == got.shape and np.array_equal(r, got)
+                       for r in cands):
+                raise AssertionError(f"micro-batching {label}: a future's "
+                                     f"rows for frame {i} equal no "
+                                     f"predict_batch of its groups")
+            _, _, _, matched = match_rows(got, singles[i], 1e-2, 1e-4)
+            shares.append(matched / max(len(got), len(singles[i]), 1))
+        groups.clear()
+        return min(shares), float(np.mean(shares))
+
+    def run_clients(n_threads, per_thread):
+        mb = MicroBatcher(pred)
+        lat, results = [], []
+        lock = threading.Lock()
+
+        def client(t):
+            futs = []
+            for j in range(per_thread):
+                i = (t * per_thread + j) % len(imgs)
+                t0 = time.perf_counter()
+                f = mb.submit(imgs[i])
+                f.add_done_callback(lambda f, t0=t0, i=i: lat.append(
+                    (time.perf_counter() - t0) * 1e3))
+                futs.append((i, f))
+            got = [(i, f.result(timeout=300)) for i, f in futs]
+            with lock:
+                results.extend(got)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(n_threads)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        secs = time.perf_counter() - t0
+        mb.close()
+        return mb, results, lat, secs
+
+    # 32 requests from 4 client threads at once
+    groups.clear()
+    mb, results, lat, secs = run_clients(4, 8)
+    if len(results) != 32 or sum(mb.batch_sizes) != 32:
+        raise AssertionError(f"micro-batching: {len(results)} results, "
+                             f"batches {mb.batch_sizes}")
+    least, mean = hold(results, "4 clients")
+    entry["concurrent_4x8"] = {
+        "requests_per_s": 32 / secs, "p50_ms": float(np.percentile(lat, 50)),
+        "p90_ms": float(np.percentile(lat, 90)),
+        "batch_sizes": dict(sorted(Counter(mb.batch_sizes).items())),
+        "least_share_matching_single": least,
+        "mean_share_matching_single": mean}
+    c = entry["concurrent_4x8"]
+    print(f"  MicroBatcher (max_batch 8, max_delay_ms 4, pipeline_depth 2), "
+          f"32 requests from 4 threads at once on {card}: "
+          f"{c['requests_per_s']:.2f} requests/s, per request p50 "
+          f"{c['p50_ms']:.2f} ms, p90 {c['p90_ms']:.2f}; batch sizes "
+          f"{c['batch_sizes']}; every future's rows bit-equal to its "
+          f"frame's in predict_batch of its group; rows matching the "
+          f"frame's single request within 1e-2 px and 1e-4: least share "
+          f"{least:.4f}, mean {mean:.4f}", flush=True)
+
+    # a closed loop of 16 beside the single predict calls
+    groups.clear()
+    mb = MicroBatcher(pred)
+    lat, results = [], []
+    t0 = time.perf_counter()
+    for r in range(16):
+        i = r % len(imgs)
+        t = time.perf_counter()
+        results.append((i, mb.submit(imgs[i]).result(timeout=300)))
+        lat.append((time.perf_counter() - t) * 1e3)
+    secs = time.perf_counter() - t0
+    mb.close()
+    least, _ = hold(results, "closed loop")
+    if set(mb.batch_sizes) == {1} and least != 1.0:
+        raise AssertionError("micro-batching closed loop: single-request "
+                             "groups differ from predict")
+    # the same single predict calls from a thread of their own, as the
+    # batcher's worker makes them: the thread's share of the closed loop
+    threaded = []
+    th = threading.Thread(target=lambda: threaded.extend(
+        serve_times(pred, imgs)[0]))
+    th.start()
+    th.join(timeout=300)
+    entry["closed_loop_16"] = {
+        "requests_per_s": 16 / secs, "p50_ms": float(np.percentile(lat, 50)),
+        "p90_ms": float(np.percentile(lat, 90)),
+        "batch_sizes": dict(sorted(Counter(mb.batch_sizes).items())),
+        "least_share_matching_single": least,
+        "single_in_a_thread_p50_ms": float(np.percentile(threaded, 50))}
+    c = entry["closed_loop_16"]
+    print(f"  MicroBatcher closed loop of 16 on {card}: "
+          f"{c['requests_per_s']:.2f} requests/s, p50 {c['p50_ms']:.2f} ms, "
+          f"p90 {c['p90_ms']:.2f}, batch sizes {c['batch_sizes']}; single "
+          f"predict calls: p50 {entry['single_p50_ms']:.2f} ms, p90 "
+          f"{entry['single_p90_ms']:.2f}, {entry['single_requests_per_s']:.2f}"
+          f" requests/s; the same calls from a second thread: p50 "
+          f"{c['single_in_a_thread_p50_ms']:.2f} ms", flush=True)
+
+    # per-class soft-NMS through the batcher: B.2 at its batch sizes
+    model.nms_type = "soft_nms"
+    pred.warmup(batch_sizes=(1, 2, 4, 8))
+    forwards = []
+    hook = model.register_forward_hook(
+        lambda module, args, kwargs, out: forwards.append(
+            (out, kwargs.get("valid_hw"))), with_kwargs=True)
+    torch.cuda.synchronize()
+    zero_int8_counts()                                   # just before
+    mb, results, lat, secs = run_clients(4, 2)
+    torch.cuda.synchronize()
+    counts = int8_counts(torch)                          # just after
+    hook.remove()
+    groups.clear()
+    pred.stage = stage
+    want = {"hard_nms": 0, "soft_nms": 0,
+            "soft_nms_classes": len(mb.batch_sizes), "dcn": 0,
+            "int8_conv2d": 0, "int8_quantize_pack": 0}
+    if counts != want or len(forwards) != len(mb.batch_sizes):
+        raise AssertionError(f"micro-batching with soft-NMS launched "
+                             f"{counts} in {len(forwards)} forwards (want "
+                             f"{want})")
+    # the largest batch's ROI selection redone with the plain serial
+    # soft-NMS per class
+    out, vhw = max(forwards, key=lambda f: f[0].rois.shape[0])
+    m = model
+    with torch.inference_mode():
+        hm = mask_heatmap_extent(out.hms[-1].float(), vhw, 4)
+        dets = topk_decode(hm, out.whs[-1].float(), out.offsets[-1].float(),
+                           k=m.topk)
+        ns, keep, _ = sn.soft_nms_reference(
+            dets.boxes, dets.scores, None, dets.classes,
+            sigma=m.soft_nms_sigma, iou_threshold=m.nms_iou,
+            score_threshold=m.soft_nms_score_threshold, method="gaussian",
+            max_out=m.stage2_rois)
+        top, idx = topk_desc(torch.where(keep, ns, -torch.inf),
+                             m.stage2_rois)
+        valid = top > -torch.inf
+        rois = torch.gather(dets.boxes, 1, idx[..., None].expand(-1, -1, 4))
+        same = (torch.equal(valid, out.roi_valid)
+                and torch.equal(rois, out.rois)
+                and torch.equal(torch.gather(dets.classes, 1, idx),
+                                out.roi_classes))
+    m.nms_type = "nms"
+    if not same:
+        raise AssertionError("micro-batching soft-NMS ROIs differ from the "
+                             "plain serial soft-NMS's")
+    entry["soft_nms_4x2"] = {
+        "requests_per_s": 8 / secs, "p50_ms": float(np.percentile(lat, 50)),
+        "p90_ms": float(np.percentile(lat, 90)),
+        "batch_sizes": dict(sorted(Counter(mb.batch_sizes).items())),
+        "soft_nms_classes_launches": counts["soft_nms_classes"],
+        "checked_batch": int(out.rois.shape[0])}
+    c = entry["soft_nms_4x2"]
+    print(f"  MicroBatcher with per-class soft-NMS, 8 requests from 4 "
+          f"threads on {card}: {c['requests_per_s']:.2f} requests/s, p50 "
+          f"{c['p50_ms']:.2f} ms, p90 {c['p90_ms']:.2f}; batch sizes "
+          f"{c['batch_sizes']}; launches {counts} (B.2 once a batch); the "
+          f"batch of {c['checked_batch']}'s ROIs equal to the plain serial "
+          f"soft-NMS's", flush=True)
+    del mb, pred, model
+    return entry
+
+
 def main(argv=None) -> int:
     import argparse
     from pathlib import Path
@@ -3285,6 +3942,7 @@ def main(argv=None) -> int:
     classes = check_soft_nms_classes(torch, sn, rng, card, before_classes)
     hard = check_hard_nms(torch, hn, rng, card)
     dcn_fwd, dcn_bwd = check_dcn(torch, rng, card, before_pair)
+    int8_conv, int8_pack = check_int8_conv(torch, rng, card)
 
     phase("small-input reference")
     check_small_reference(torch)
@@ -3337,12 +3995,37 @@ def main(argv=None) -> int:
         "eval": hr_launches["hard_nms_eval"]}
     classes["hrnet_attention_launches"] = hr_launches["soft_nms_classes"]
 
+    phase("int8 path")
+    t0 = time.perf_counter()
+    int8 = run_int8_path(torch, card)
+    int8["seconds"] = time.perf_counter() - t0
+    print(f"  phase took {int8['seconds']:.1f} s", flush=True)
+    launches = int8["serve"]["launches"]
+    int8_conv["launches"] = launches["int8_conv2d"]
+    int8_pack["launches"] = launches["int8_quantize_pack"]
+    for entry, key in ((int8_conv, "int8_conv2d"),
+                       (int8_pack, "int8_quantize_pack")):
+        entry["launches_per_forward"] = launches[key] / 16
+        entry["six_scale_eval_launches"] = (
+            int8["six_scales_int8"]["launches"][key])
+    hard["int8_path_launches"] = launches["hard_nms"]
+
+    phase("micro-batching")
+    t0 = time.perf_counter()
+    batching = run_microbatching(torch, card)
+    batching["seconds"] = time.perf_counter() - t0
+    print(f"  phase took {batching['seconds']:.1f} s", flush=True)
+    classes["microbatching_launches"] = (
+        batching["soft_nms_4x2"]["soft_nms_classes_launches"])
+
     print(json.dumps({"data": data}), flush=True)
     print(json.dumps({"eval_protocol": protocol}), flush=True)
     print(json.dumps({"retinanet": retina}), flush=True)
     print(json.dumps({"hrnetv2_attention": hrnet}), flush=True)
-    print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard]}),
-          flush=True)
+    print(json.dumps({"int8": int8}), flush=True)
+    print(json.dumps({"microbatching": batching}), flush=True)
+    print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard,
+                                  int8_conv, int8_pack]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

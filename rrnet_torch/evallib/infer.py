@@ -22,14 +22,23 @@ the reference applies no host NMS after them
 (retinanet_operator.py:250-258), so they are never merged.
 `evaluate_split` runs a whole split through a three-stage pipeline
 (upload on a thread, compute, collect) and writes VisDrone result txts.
+
+`quantize="int8"` runs the eligible body convolutions as int8
+(`models.layers.quant_context`, `ops.int8_conv`) after `calibrate` has
+recorded each one's input absmax; a dispatch calibrates on its own batch
+when `calibrate` was never called. The mode is entered inside
+`dispatch_batch`, around the forwards, so that it holds in whatever
+thread dispatches (a context variable set by another thread is not
+seen there).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +50,9 @@ from rrnet_torch.evallib import host_nms
 from rrnet_torch.evallib.writer import save_result
 from rrnet_torch.models import retinanet
 from rrnet_torch.models.anchors import model_anchors
+from rrnet_torch.models.layers import (drop_int8_weights, name_quant_convs,
+                                       quant_context,
+                                       quant_scales_from_stats)
 from rrnet_torch.models.modules import resize_bilinear
 from rrnet_torch.models.rrnet import mask_heatmap_extent
 from rrnet_torch.ops.box import decode_boxes
@@ -95,23 +107,32 @@ class Evaluator:
     def __init__(self, cfg: Config, model: torch.nn.Module, *,
                  device: Union[str, torch.device] = "cuda",
                  bucket_multiple: int = 128, decode_topk: int = 250,
-                 fuse_flip: bool = True, stage2_decode: str = "full"):
+                 fuse_flip: bool = True, stage2_decode: str = "full",
+                 quantize: Optional[str] = None):
         """model: the port's RRNet, CenterNet or RetinaNet (moved to
         `device`, set to eval). decode_topk: CenterNet's top-k per image;
         RetinaNet takes 4 * decode_topk anchors (at most all of them) into
         its NMS; RRNet takes `model.topk`. fuse_flip: flip TTA as one
         forward of 2B images (True) or two of B. stage2_decode (RRNet):
         "full" applies the stage-2 deltas, "stage1" reports the stage-1
-        ROIs, "zero" decodes with all-zero deltas."""
+        ROIs, "zero" decodes with all-zero deltas. quantize: None or
+        "int8" (module docstring)."""
         if cfg.model.name not in ("rrnet", "centernet", "retinanet"):
             raise NotImplementedError(f"Evaluator for {cfg.model.name!r} "
                                       "is not ported yet")
         if stage2_decode not in ("full", "stage1", "zero"):
             raise ValueError(f"stage2_decode must be full/stage1/zero, "
                              f"got {stage2_decode!r}")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got "
+                             f"{quantize!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.quantize = quantize
+        self._quant_scales: Optional[Dict[str, float]] = None
+        if quantize is not None:
+            name_quant_convs(self.model)
         self.stage2_decode = stage2_decode
         self.bucket_multiple = bucket_multiple
         self.decode_topk = decode_topk
@@ -163,12 +184,56 @@ class Evaluator:
             x = _flip_valid_width(x, vhw[:, 1])
         return x, vhw
 
+    def _model(self, x: torch.Tensor, vhw: torch.Tensor):
+        if self.cfg.model.name == "rrnet":
+            return self.model(x, valid_hw=vhw)
+        return self.model(x)
+
+    def calibrate(self, images) -> Dict[str, float]:
+        """Record every eligible conv's input absmax on one representative
+        batch (a list of images, or a StagedBatch): one forward per
+        distinct scale of `val.scales` (a mirrored image has the same
+        values, so no flip), the elementwise max kept. Stores and returns
+        the scales {conv name: absmax}; raises if no conv was eligible."""
+        staged = images if isinstance(images, StagedBatch) else \
+            self._upload(list(images))
+        stats = []
+        with torch.inference_mode():
+            base = self._normalize(staged)
+            for scale in dict.fromkeys(self.cfg.val.scales):
+                scaled = self._scaled_shape(staged.bucket, scale)
+                x, vhw = self._preprocess(staged, scaled, False, base)
+                with quant_context("calibrate") as ctx:
+                    self._model(x, vhw)
+                stats.append(ctx.stats)
+        scales = quant_scales_from_stats(stats)
+        if not scales:
+            raise RuntimeError("calibration recorded no conv ranges: the "
+                               "model has no quantization-eligible "
+                               "convolutions")
+        self._quant_scales = scales
+        return scales
+
+    def update_variables(self, state: Mapping[str, torch.Tensor]) -> None:
+        """Load a new state dict into the model; the calibration scales
+        and the packed int8 weights are dropped (the next int8 dispatch
+        calibrates again)."""
+        self.model.load_state_dict(state)
+        self._quant_scales = None
+        drop_int8_weights(self.model)
+
+    def _quant(self):
+        """The int8 mode with this Evaluator's scales, or nothing."""
+        if self.quantize is None:
+            return contextlib.nullcontext()
+        return quant_context("int8", dict(self._quant_scales))
+
     def _forward(self, x: torch.Tensor, vhw: torch.Tensor) -> torch.Tensor:
         """Forward + decode -> (B, K, 6) packed rows [x, y, w, h, score,
         cls + 1]; invalid rows get score -1."""
         s = self.cfg.train.scale_factor
         if self.cfg.model.name == "retinanet":
-            loc, cls = self.model(x)
+            loc, cls = self._model(x, vhw)
             anchors = self.anchors_for(tuple(x.shape[-2:]))
             return retinanet.decode(loc, cls, anchors, vhw,
                                     min(4 * self.decode_topk,
@@ -176,7 +241,7 @@ class Evaluator:
         if self.cfg.model.name == "centernet":
             # the last stack only, decoded to the top decode_topk with no
             # peak NMS (the reference operator's transform_bbox)
-            hms, whs, regs = self.model(x)
+            hms, whs, regs = self._model(x, vhw)
             hm = mask_heatmap_extent(hms[-1].float(), vhw, s)
             dets = topk_decode(hm, whs[-1].float(), regs[-1].float(),
                                k=self.decode_topk, scale_factor=float(s))
@@ -186,7 +251,7 @@ class Evaluator:
             score = torch.where(dets.scores > 0, dets.scores, -1.0)
             cls = dets.classes.float() + 1.0
             return torch.cat([xywh, score[..., None], cls[..., None]], dim=-1)
-        outs = self.model(x, valid_hw=vhw)
+        outs = self._model(x, vhw)
         rois_xyxy = outs.rois * s
         rois_xywh = torch.cat([rois_xyxy[..., :2],
                                rois_xyxy[..., 2:4] - rois_xyxy[..., :2]], -1)
@@ -274,12 +339,14 @@ class Evaluator:
         cfg = self.cfg
         staged = images if isinstance(images, StagedBatch) else \
             self._upload(images)
+        if self.quantize is not None and self._quant_scales is None:
+            self.calibrate(staged)      # lazily, on the first batch
         if cfg.val.flip_tta:
             flips = ("both",) if self.fuse_flip else (True, False)
         else:
             flips = (False,)
         pending = []
-        with torch.inference_mode():
+        with torch.inference_mode(), self._quant():
             base = self._normalize(staged)
             for scale in cfg.val.scales:
                 scaled = self._scaled_shape(staged.bucket, scale)

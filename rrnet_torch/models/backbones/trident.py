@@ -52,7 +52,7 @@ class SharedConv(nn.Module):
             for i, d in enumerate(self.dilations):
                 self.add_module(f"offset_mask{i}", Conv2d(
                     cin, n, kernel, stride, d, bias=True, init="zeros",
-                    dilation=d))
+                    dilation=d, quantizable=False))
 
     def reset_parameters_from(self, generator: torch.Generator) -> None:
         features = self.weight.shape[0]
@@ -122,14 +122,17 @@ class BottleneckV2(nn.Module):
         super().__init__()
         mid = features // 4
         self.bn1 = BatchNorm(cin)
-        self.conv1 = Conv2d(cin, mid, 1, bias=False, init="msra")
+        self.conv1 = Conv2d(cin, mid, 1, bias=False, init="msra",
+                            quantizable=False)
         self.bn2 = BatchNorm(mid)
-        self.conv2 = Conv2d(mid, mid, 3, stride, 1, bias=False, init="msra")
+        self.conv2 = Conv2d(mid, mid, 3, stride, 1, bias=False, init="msra",
+                            quantizable=False)
         self.bn3 = BatchNorm(mid)
-        self.conv3 = Conv2d(mid, features, 1, bias=False, init="msra")
+        self.conv3 = Conv2d(mid, features, 1, bias=False, init="msra",
+                            quantizable=False)
         if downsample:
             self.down_conv = Conv2d(cin, features, 1, stride, bias=False,
-                                    init="msra")
+                                    init="msra", quantizable=False)
             self.down_bn = BatchNorm(features)
         else:
             self.down_conv = None

@@ -61,7 +61,8 @@ class CenterNetHead(nn.Module):
         self.dtype = dtype
         for i, cin in enumerate(per_stack(in_channels, num_stacks)):
             self.add_module(f"conv{i}", Conv2d(cin, mid_channels, 3,
-                                               1, 1, dtype=dtype))
+                                               1, 1, dtype=dtype,
+                                               quantizable=False))
             self.add_module(f"out{i}", ConvParam(
                 mid_channels, planes, 1, 1,
                 bias_value=-2.19 if is_heatmap else 0.0))
@@ -91,7 +92,8 @@ class CenterNetWHHead(nn.Module):
         self.pad = (kernel - 1) // 2
         for i, cin in enumerate(per_stack(in_channels, num_stacks)):
             self.add_module(f"conv{i}", Conv2d(cin, mid_channels, 3,
-                                               1, 1, dtype=dtype))
+                                               1, 1, dtype=dtype,
+                                               quantizable=False))
             self.add_module(f"hconv{i}", ConvParam(mid_channels, planes,
                                                    kernel, 1))
             self.add_module(f"wconv{i}", ConvParam(mid_channels, planes,
@@ -131,8 +133,8 @@ class RetinaNetHead(nn.Module):
     """Shared conv tower: 4 x (3x3 conv-256 + relu), then a 3x3 out conv
     to `planes` channels. The JAX package uses flax `nn.Conv` here (not
     its `Conv2d`): the same kernel/bias leaves, torch's default kernel
-    init and a zero bias, which `Conv2d` also gives. Scopes `conv0..3`,
-    `out`."""
+    init and a zero bias, which `Conv2d` also gives; so never int8
+    (`quantizable=False`). Scopes `conv0..3`, `out`."""
 
     def __init__(self, planes: int, in_channels: int = 256,
                  mid_channels: int = 256, dtype=torch.float32):
@@ -140,8 +142,9 @@ class RetinaNetHead(nn.Module):
         for i in range(4):
             self.add_module(f"conv{i}", Conv2d(
                 in_channels if i == 0 else mid_channels, mid_channels, 3, 1,
-                1, dtype=dtype))
-        self.out = Conv2d(mid_channels, planes, 3, 1, 1, dtype=dtype)
+                1, dtype=dtype, quantizable=False))
+        self.out = Conv2d(mid_channels, planes, 3, 1, 1, dtype=dtype,
+                          quantizable=False)
 
     def forward(self, x):
         """x (B, C, H, W) -> (B, planes, H, W)."""

@@ -17,17 +17,35 @@ Every convolution of the port goes through `conv2d`, which runs an f32
 convolution at f32 precision in its forward and its backward, whatever
 the caller's global TF32 setting (PyTorch lets cuDNN take TF32 for f32
 convolutions by default).
+
+int8 post-training quantization (port of layers.py:40-110 and the int8
+branch of its `Conv2d`) is a mode, not a change of the parameters:
+`quant_context(mode, scales)` sets a context variable that `Conv2d`
+reads in its forward. An eligible conv (`quantizable`, groups 1, at
+least `min_channels` input channels) records its input's absmax in
+"calibrate" mode, and in "int8" mode, given a scale > 0 for its name,
+runs `ops.int8_conv.quantize_pack` and `int8_conv2d` on its weight
+quantized and packed once (dropped when the weight changes). Names are
+the modules' qualified names, set by `name_quant_convs(model)`; they
+equal the JAX package's scope paths with "." for "/". A `Conv2d` that
+stands in for a flax `nn.Conv` (the stage-1 head towers, RetinaNet's
+head, the attention's convs, the trident's convs) is built with
+`quantizable=False`, since the JAX package never quantizes those.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules.utils import _pair
+
+from rrnet_torch.ops import int8_conv
 
 
 @contextlib.contextmanager
@@ -111,17 +129,86 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+_QUANT_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "rrnet_torch_quant", default=None)
+
+
+class QuantCtx(NamedTuple):
+    mode: str                       # "calibrate" | "int8"
+    scales: Optional[dict] = None   # {conv name: input absmax}
+    min_channels: int = 32          # skip thin-input convs (stems)
+    stats: Optional[dict] = None    # calibrate: {conv name: absmax tensor}
+
+
+@contextlib.contextmanager
+def quant_context(mode: str, scales: Optional[dict] = None,
+                  min_channels: int = 32):
+    """Activate a quantization mode for the forwards run inside the block
+    in this thread (a context variable: another thread does not see it).
+    "calibrate": eligible convs record their input absmax into the
+    yielded context's `stats` (maxed when a conv runs twice). "int8":
+    eligible convs whose name has a scale > 0 in `scales` run int8."""
+    if mode not in ("calibrate", "int8"):
+        raise ValueError(f"unknown quant mode {mode!r}")
+    ctx = QuantCtx(mode, scales, min_channels,
+                   {} if mode == "calibrate" else None)
+    token = _QUANT_CTX.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _QUANT_CTX.reset(token)
+
+
+def current_quant() -> Optional[QuantCtx]:
+    return _QUANT_CTX.get()
+
+
+def quant_scales_from_stats(stats) -> Dict[str, float]:
+    """{conv name: absmax} floats from a calibration's `stats` (or a list
+    of them, from several calibration passes), maxed over the list."""
+    if isinstance(stats, dict):
+        stats = [stats]
+    names = [k for st in stats for k in st]
+    if not names:
+        return {}
+    values = torch.stack([st[k].float().reshape(()).cpu() for st in stats
+                          for k in st]).tolist()
+    out: Dict[str, float] = {}
+    for k, v in zip(names, values):
+        out[k] = max(out.get(k, 0.0), float(v))
+    return out
+
+
+def name_quant_convs(model: nn.Module) -> nn.Module:
+    """Give every `Conv2d` of `model` its qualified name, the key of its
+    calibration scale. Returns the model."""
+    for name, m in model.named_modules():
+        if isinstance(m, Conv2d):
+            m.quant_name = name
+    return model
+
+
+def drop_int8_weights(model: nn.Module) -> None:
+    """Forget every `Conv2d`'s quantized and packed weight (a weight swap
+    through `load_state_dict` is also noticed by its version counter)."""
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            m._int8 = None
+
+
 class Conv2d(nn.Module):
-    """Conv with an OIHW f32 weight, computed in `dtype` (the f32/bf16
-    path of the JAX Conv2d; its int8 path is not ported yet). `groups`
-    is flax's `feature_group_count`: the weight is (cout, cin / groups,
-    kh, kw) and the torch init's fan-in counts cin / groups, as flax's
-    does on that kernel."""
+    """Conv with an OIHW f32 weight, computed in `dtype` (the JAX
+    Conv2d), with the int8 and calibration modes of `quant_context`
+    (module docstring). `groups` is flax's `feature_group_count`: the
+    weight is (cout, cin / groups, kh, kw) and the torch init's fan-in
+    counts cin / groups, as flax's does on that kernel.
+    `quantizable=False` for a conv that stands in for flax's `nn.Conv`.
+    `padding`: an int or (ph, pw), symmetric as every JAX Conv2d's."""
 
     def __init__(self, cin: int, cout: int, kernel, stride=1, padding=0,
                  bias: bool = True, init: str = "torch",
                  dtype: torch.dtype = torch.float32, dilation: int = 1,
-                 groups: int = 1):
+                 groups: int = 1, quantizable: bool = True):
         super().__init__()
         kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         if cin % groups or cout % groups:
@@ -133,6 +220,9 @@ class Conv2d(nn.Module):
         self.groups = groups
         self.init = init
         self.dtype = dtype
+        self.quantizable = quantizable
+        self.quant_name: Optional[str] = None
+        self._int8 = None       # (weight key, PackedWeight, {absmax: scale})
         self.weight = nn.Parameter(torch.empty(cout, cin // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
@@ -148,9 +238,61 @@ class Conv2d(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        q = current_quant()
+        if (q is not None and self.quantizable and self.groups == 1
+                and x.shape[1] >= q.min_channels):
+            name = self.quant_name
+            if name is None:
+                raise RuntimeError("a Conv2d under a quant context has no "
+                                   "name: call name_quant_convs(model)")
+            if q.mode == "calibrate":
+                amax = x.detach().abs().amax().float()
+                prev = q.stats.get(name)
+                q.stats[name] = amax if prev is None else torch.maximum(
+                    prev, amax)
+            elif q.scales is not None and q.scales.get(name, 0.0) > 0:
+                return self._int8_forward(x, float(q.scales[name]))
         b = None if self.bias is None else self.bias.to(self.dtype)
         return conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
                       self.stride, self.padding, self.dilation, self.groups)
+
+    def pad4(self):
+        """The padding per side: (top, bottom, left, right)."""
+        ph, pw = _pair(self.padding)
+        return (ph, ph, pw, pw)
+
+    def _packed(self):
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.device)
+        if self._int8 is None or self._int8[0] != key:
+            with torch.no_grad():
+                self._int8 = (key, int8_conv.pack_weight(w.detach()), {})
+        return self._int8
+
+    def packed_weight(self) -> int8_conv.PackedWeight:
+        """The weight quantized and packed, made once per weight version."""
+        return self._packed()[1]
+
+    def _int8_forward(self, x, absmax: float):
+        """The JAX int8 branch: the input as it arrives quantized with
+        `absmax`, the weight per output channel, the product exact in
+        int32, dequantized into `dtype`, then the bias in `dtype`. The
+        packed weight and the dequantize multiplier (and the bias in
+        `dtype`) are made once, not every forward."""
+        _, packed, per_scale = self._packed()
+        s_in = absmax / 127.0
+        made = per_scale.get(absmax)
+        if made is None:
+            with torch.no_grad():
+                made = (int8_conv.dequant_scale(packed.s_w, s_in),
+                        None if self.bias is None
+                        else self.bias.detach().to(self.dtype).contiguous())
+            per_scale[absmax] = made
+        scale, bias = made
+        xq = int8_conv.quantize_pack(x.contiguous(), absmax)
+        return int8_conv.int8_conv2d(
+            xq, packed, s_in, bias, self.stride, self.pad4(), self.dtype,
+            groups=self.groups, dilation=self.dilation, scale=scale)
 
 
 class BatchNorm(nn.Module):

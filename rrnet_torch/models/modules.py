@@ -83,15 +83,18 @@ class SelfAttentionModule(nn.Module):
         self.padding, self.stride, self.scale = padding, stride, scale
         for name in ("f_key", "f_query"):
             self.add_module(f"{name}_conv1", Conv2d(in_channels, key_channels,
-                                                    1, dtype=dtype))
+                                                    1, dtype=dtype,
+                                                    quantizable=False))
             self.add_module(f"{name}_bn1", BatchNorm(key_channels))
             self.add_module(f"{name}_conv2", Conv2d(key_channels,
                                                     key_channels, 1,
-                                                    dtype=dtype))
+                                                    dtype=dtype,
+                                                    quantizable=False))
             self.add_module(f"{name}_bn2", BatchNorm(key_channels))
-        self.f_value = Conv2d(in_channels, value_channels, 1, dtype=dtype)
+        self.f_value = Conv2d(in_channels, value_channels, 1, dtype=dtype,
+                              quantizable=False)
         self.W = Conv2d(value_channels, out_channels or in_channels, 1,
-                        init="zeros", dtype=dtype)
+                        init="zeros", dtype=dtype, quantizable=False)
 
     def _tower(self, x, name):
         y = F.relu(getattr(self, f"{name}_bn1")(

@@ -3,7 +3,7 @@ scripts/{RRNet,CTNet}/eval.py):
 
     python -m rrnet_torch.scripts.eval --config rrnet --ckpt log/TwoStageNet
         [--split val] [--max-images N] [--batch 4] [--no-score]
-        [--device cuda|cpu] [key=value ...]
+        [--quantize int8] [--device cuda|cpu] [key=value ...]
 
 Restores a checkpoint written by `python -m rrnet_torch.scripts.train`
 (`--ckpt` is a log directory, whose newest `ckp-N` is taken, or a
@@ -11,6 +11,9 @@ Restores a checkpoint written by `python -m rrnet_torch.scripts.train`
 (`val.scales`, flip TTA for CenterNet, the host soft-NMS merge when
 `val.auto_test=False`), writes VisDrone result txts to `val.result_dir`
 and scores them with the VisDrone AP evaluator. One card (or the CPU).
+`--quantize int8` runs the body convolutions as int8
+(`Evaluator(quantize="int8")`), calibrated on the first batch at every
+protocol scale.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="images per eval batch (per shape bucket)")
     ap.add_argument("--no-score", action="store_true",
                     help="skip the AP computation (txt files only)")
+    ap.add_argument("--quantize", default=None, choices=["int8"],
+                    help="int8 post-training quantization of the body "
+                    "convolutions, calibrated on the first batch")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
@@ -72,7 +78,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = cfglib.apply_overrides(cfglib.PRESETS[args.config](),
                                  args.overrides)
     model, _ = load_model(cfg, args.device, args.ckpt)
-    ev = Evaluator(cfg, model, device=args.device)
+    ev = Evaluator(cfg, model, device=args.device, quantize=args.quantize)
     result_dir = ev.evaluate_split(ValLoader(cfg, split=args.split),
                                    max_images=args.max_images,
                                    batch_size=args.batch)

@@ -5,7 +5,7 @@ retinanet and rrnet_hrnetv2_attention families (port of
     python -m rrnet_torch.scripts.synth_gate
         [--family rrnet|centernet|retinanet|rrnet_hrnetv2_attention]
         [--steps N] [--batch 8] [--dir DIR] [--out SYNTH_AP_torch.json]
-        [--device cuda] [key=value ...]
+        [--int8-delta] [--device cuda] [key=value ...]
 
 Makes the deterministic 32+8-image VisDrone-format set from the demo
 fixture (`data.synth`, seed 219), trains the family's preset on it
@@ -18,7 +18,11 @@ stage-2 re-regression, the stage-1 ROIs alone, all-zero deltas), and
 rrnet_hrnetv2_attention (an RRNet) likewise;
 centernet 400 steps, one decode; retinanet 1600 steps, one decode (no
 host merge). `seed=S` among the overrides draws other weights,
-permutations and samples; the set stays seed 219.
+permutations and samples; the set stays seed 219. `--int8-delta`
+scores the same weights again with `Evaluator(quantize="int8")` (the
+full decode; for an RRNet the stage-2 trunk quantizes with the backbone)
+and writes an `int8` entry beside the row: AP, AP50, AP75, AR, the
+number of quantized convs and `AP_delta_vs_bf16`.
 
 Adds the run's row (APs, the train time and the share of it the step
 loop spent waiting for batches, the seed, the card) to the rows already
@@ -133,21 +137,30 @@ def run(args) -> dict:
                        "loader_skips": train_loader.skips}}
     if rrnet:
         entry["train"]["stage2_warmup_steps"] = steps // 4
-    for tag, decode in DECODES[family]:
-        ev = Evaluator(cfg, model, device=trainer.device,
-                       stage2_decode=decode)
+    def score(tag, **ev_kwargs):
+        ev = Evaluator(cfg, model, device=trainer.device, **ev_kwargs)
         result_dir = ev.evaluate_split(
             val_loader, result_dir=os.path.join(args.dir, f"results_{tag}"),
             batch_size=4, verbose=False)
         scores = evaluate_results(result_dir, gt_dir, verbose=False)
         row = {"AP": scores["ap"], "AP50": scores["ap50"],
                "AP75": scores["ap75"], "AR": scores["ar"]}
+        if ev.quantize is not None:
+            row["quantized_convs"] = len(ev._quant_scales)
         print(f"# {tag}: " + " ".join(f"{k}={v:.4f}" for k, v in row.items()),
               file=sys.stderr)
+        return row
+
+    for tag, decode in DECODES[family]:
+        row = score(tag, stage2_decode=decode)
         if tag == family:
             entry.update(row)
         else:
             entry[tag] = row
+    if args.int8_delta:
+        row = score(f"{family}_int8", quantize="int8")
+        row["AP_delta_vs_bf16"] = row["AP"] - entry["AP"]
+        entry["int8"] = row
     return {
         "gate": "synthetic multi-image train->eval->AP",
         "dataset": {"n_train": N_TRAIN, "n_val": N_VAL, "seed": SEED,
@@ -210,6 +223,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--dir", default=os.path.join(REPO, "build", "rrnet_synth"),
                     help="where the synthetic set and results are written")
     ap.add_argument("--out", default=os.path.join(REPO, "SYNTH_AP_torch.json"))
+    ap.add_argument("--int8-delta", action="store_true",
+                    help="also score the weights with quantize='int8' and "
+                    "record the AP delta")
     ap.add_argument("--device", default="cuda", help="'cuda' or 'cpu'")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = ap.parse_args(argv)

@@ -20,6 +20,10 @@ A leaf no rule maps raises; `load_flax_variables` also raises on a
 parameter the model has and the tree lacks, or the other way round, and
 on any shape that differs.
 
+`quant_scales_from_flax` carries a JAX int8 calibration (`{scope path:
+absmax}`) across by the same naming rule (a conv's scope path is its
+module name, "/" becoming "."), and `quant_scales_to_flax` back.
+
 `load_flax_train_state` carries a whole JAX `TrainState` across into the
 port's `train.TrainState`: params and batch_stats by the rules above,
 Adam's `mu` and `nu` by the params' key map, Adam's count, the schedule's
@@ -170,3 +174,19 @@ def load_flax_train_state(state, tree):
     state.count.fill_(int(adam["count"]))
     state.sched_count.fill_(int(sched["count"]))
     return state
+
+
+def quant_scales_from_flax(scales: Mapping[str, float]) -> Dict[str, float]:
+    """The JAX package's calibration scales ({"a/b/conv": absmax}, keys
+    the convs' flax scope paths) keyed by the port's module names."""
+    out = {}
+    for key, v in scales.items():
+        if _BN in key.split("/"):
+            raise ValueError(f"a calibration scale under {_BN}: {key}")
+        out[key.replace("/", ".")] = float(v)
+    return out
+
+
+def quant_scales_to_flax(scales: Mapping[str, float]) -> Dict[str, float]:
+    """The port's calibration scales keyed by the JAX scope paths."""
+    return {k.replace(".", "/"): float(v) for k, v in scales.items()}
