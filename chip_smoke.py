@@ -125,6 +125,22 @@ Phases (any failure exits non-zero before the result line):
      held to its frame's single request (97% of the rows within 1e-2 px
      and 1e-4); then 8 requests with per-class soft-NMS (B.2 once a
      batch, one batch's ROIs equal to the plain serial soft-NMS's).
+ 14. data-parallel path: (a) two ranks on cuda:0, each a process of its
+     own with a hard timeout, their collectives over gloo (NCCL puts no
+     two ranks on one device), train the `rrnet` preset at full width
+     (bf16, 2 crops of 512x512 a rank, SyncBN): 5 steps at the defaults
+     (one hard-NMS launch a step on each rank), one with per-class
+     soft-NMS (one B.2 launch on each rank), one with an inf batch on
+     rank 1 alone (both skip, bitwise); then both ranks' params, moments,
+     counts, step and SyncBN statistics are sha256-equal, and the step's
+     collectives are timed alone; (b) in the same ranks, the tiny f32
+     two-rank step on the card against the CPU; (c) a one-rank NCCL
+     group joined from the environment (`parallel.init_from_env`): the
+     full-width step p50 beside the plain Trainer's, in turns, and the
+     765 MB flat gradient's all-reduce under NCCL and gloo; (d) `python
+     -m rrnet_torch.scripts.eval --data-parallel` on the synthetic split
+     writes result files byte-equal to the run without the flag. One
+     card gives no multi-card number.
 The kernels phase also holds the int8 quantize-and-pack pass and the
 int8 convolution bit-equal to their plain versions at the main path's
 shapes (batch 1 and 4 of the 768x1408 bucket, stage 2 on 4x512 ROIs),
@@ -132,8 +148,9 @@ each timed beside its bound, cuDNN's bf16 convolution and, for 1x1
 stride-1 shapes, `torch._int_mm`.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then JSON lines hold the data path's, the eval protocol's,
-the retinanet path's, the hrnetv2-attention path's, the int8 path's and
-the micro-batching phase's numbers, one lists every kernel,
+the retinanet path's, the hrnetv2-attention path's, the int8 path's, the
+micro-batching phase's and the data-parallel path's numbers, one lists
+every kernel,
 and the last line is the result. It exits non-zero without a result when no CUDA device is
 present.
 """
@@ -1276,10 +1293,11 @@ def check_small_train(torch):
     explain_small_train_gap(torch)
 
 
-def small_train_setup(torch, nms_type):
+def small_train_setup(torch, nms_type, group=None, batch_seed=4):
     """(cpu trainer, cuda trainer, state, batch) of the tiny f32 train
     step with stage-1 `nms_type`: half of the GT boxes are the CPU step's
-    own ROIs, so stage 2 has positives."""
+    own ROIs, so stage 2 has positives. With a data-parallel `group` both
+    trainers are ranks of it (the batch is this rank's share)."""
     from rrnet_torch import config
     from rrnet_torch.profile_train import synthetic_batch
     from rrnet_torch.train import Trainer
@@ -1288,13 +1306,15 @@ def small_train_setup(torch, nms_type):
         "model.stage2_rois": 16, "model.dtype": "float32",
         "model.nms_type_for_stage1": nms_type, "train.crop_size": (64, 64),
         "train.max_objects": 16, "train.stage2_warmup_steps": 0})
-    cpu, gpu = Trainer(cfg, device="cpu"), Trainer(cfg, device="cuda")
+    cpu = Trainer(cfg, device="cpu", group=group)
+    gpu = Trainer(cfg, device="cuda", group=group)
     state = cpu.init_state(generator=torch.Generator().manual_seed(1))
     params = state.params()
     with torch.no_grad():         # spread the logits: no near-ties
         for i in range(2):
             params[f"hm.out{i}.weight"].mul_(40.0)
-    batch = synthetic_batch(np.random.RandomState(4), b=2, hw=(64, 64),
+    batch = synthetic_batch(np.random.RandomState(batch_seed), b=2,
+                            hw=(64, 64),
                             max_objects=16, n_valid=(10, 16),
                             size=(2.0, 24.0))
     outs = []
@@ -3872,6 +3892,417 @@ def run_microbatching(torch, card):
     return entry
 
 
+def sha(t):
+    """sha256 of a tensor's bytes (on the host), for a bitwise comparison
+    across processes."""
+    import hashlib
+    import torch
+    a = t.detach().contiguous().cpu()
+    if a.dim() == 0:
+        a = a.reshape(1)
+    return hashlib.sha256(a.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def dp_rank(rank, world, port, out_path, ckpt_dir):
+    """One rank of phase "data-parallel path" (a, b), started by
+    `run_data_parallel` in a process of its own on cuda:0, its
+    collectives over gloo: the flagship preset at full width (bf16, 2
+    crops of 512x512 a rank) takes 5 steps at its defaults, one with
+    per-class soft-NMS (B.2), and one in which only rank 1's batch holds
+    an inf; then the tiny f32 two-rank step on the card against the same
+    step on the CPU: `check_small_train`'s tolerances (losses 1e-4, ROI
+    selection equal, boxes 1e-3; gradients 1e-3 of their largest
+    magnitude with the CPU's ROIs fed to the card's stage 2 bit for bit,
+    its hard-NMS route), except that a gradient may differ by up to twice
+    what the CPU alone moves it when its normalised input is moved by a
+    relative 1e-6: SyncBN mixes the two ranks' batches, and on these the
+    f32 gradients sit on ReLU kinks (the CPU alone moves
+    `offset.conv1.weight` by 15%, the backbone's by ~0.5%). Writes its
+    numbers and the sha256 of every tensor of its state to `out_path`;
+    rank 0 also saves its checkpoint under `ckpt_dir`."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from rrnet_torch.ops import hard_nms as hn
+    from rrnet_torch.ops import soft_nms as sn
+    from rrnet_torch.parallel import create_group, mesh, shard_batch
+    from rrnet_torch.profile_train import synthetic_batch, train_config
+    from rrnet_torch.train import Trainer
+    from rrnet_torch.utils import checkpoint as ckpt
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    cfg = train_config()
+    dg = create_group(cfg.mesh, "cuda:0")
+    out = {"rank": rank, "world": dg.world_size}
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device="cuda:0", group=dg)
+    state = tr.init_state(generator=torch.Generator().manual_seed(cfg.seed))
+    out["n_bn"] = sum(type(m).__name__ == "BatchNorm"
+                      for m in tr.model.modules())
+    out["built_s"] = time.perf_counter() - t0
+    batch = shard_batch(synthetic_batch(np.random.RandomState(cfg.seed),
+                                        b=2 * world), dg)
+
+    def step(b):
+        nonlocal state
+        torch.cuda.synchronize()
+        c0, t = mesh.collectives, time.perf_counter()
+        state, m = tr.train_step(state, b)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t) * 1e3, mesh.collectives - c0,
+                {k: float(v) for k, v in m.items()})
+
+    hn.launches = sn.launches = sn.classes_launches = 0      # just before
+    runs = [step(batch) for _ in range(5)]
+    out["defaults"] = {
+        "ms": [r[0] for r in runs], "collectives_per_step": runs[-1][1],
+        "totals": [r[2]["total"] for r in runs],
+        "skipped": [r[2]["skipped"] for r in runs],
+        "launches": {"hard_nms": hn.launches, "soft_nms": sn.launches,
+                     "soft_nms_classes": sn.classes_launches}}  # just after
+    tr.model.nms_type = "soft_nms"
+    hn.launches = sn.launches = sn.classes_launches = 0
+    ms, _, m = step(batch)
+    out["soft_nms"] = {"ms": ms, "total": m["total"],
+                       "launches": {"hard_nms": hn.launches,
+                                    "soft_nms": sn.launches,
+                                    "soft_nms_classes": sn.classes_launches}}
+    tr.model.nms_type = "nms"
+    bad = batch if rank != 1 else dict(
+        batch, images=np.full(batch["images"].shape, np.inf, np.float32))
+    before = {k: sha(v) for k, v in state.tensors().items()}
+    _, _, m = step(bad)
+    out["inf"] = {"skipped": m["skipped"], "total": m["total"],
+                  "state_unchanged": before == {
+                      k: sha(v) for k, v in state.tensors().items()}}
+    out["sha256"] = {k: sha(v) for k, v in state.tensors().items()}
+    if rank == 0:
+        out["checkpoint"] = ckpt.save_checkpoint(ckpt_dir, state)
+    # the collectives of a step alone, both ranks at once: the flat
+    # gradient, and one SyncBN's moments (2 x 256 f32)
+    out["all_reduce_ms"] = {}
+    for name, n, reps in (("flat_gradient", state.flat_params.numel(), 3),
+                          ("syncbn_2x256", 512, 50)):
+        x = torch.ones(n, dtype=torch.float32, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        out["all_reduce_ms"][name] = (time.perf_counter() - t) * 1e3 / reps
+    del tr, state, x
+    torch.cuda.empty_cache()
+
+    # (b) the tiny f32 two-rank step, card against CPU
+    outs = {}
+    cpu, gpu, st, b = small_train_setup(torch, "soft_nms", group=dg,
+                                        batch_seed=4 + rank)
+
+    def keep(name):
+        def hook(mod, args, out):
+            outs[name] = out            # returns None: the output stands
+        return hook
+    hooks = [t.model.register_forward_hook(keep(name))
+             for name, t in (("cpu", cpu), ("cuda", gpu))]
+    gst = st.to("cuda")
+    _, g_c = cpu.loss_and_grads(st, b)
+    _, g_g = gpu.loss_and_grads(gst, b)
+    for h in hooks:
+        h.remove()
+    a, c = outs["cpu"], outs["cuda"]
+    same = all(torch.equal(getattr(a, k), getattr(c, k).cpu())
+               for k in ("roi_valid", "roi_classes"))
+    roi_gap = float((c.rois.detach().cpu() - a.rois.detach()).abs().max())
+    own = grad_gaps(g_c, g_g)
+    # the card's stage 2 fed the CPU's ROIs bit for bit (gradients still
+    # reach the boxes), as `explain_small_train_gap` does
+    cpu_rois = a.rois.detach()
+    select = type(gpu.model).select_rois.__get__(gpu.model)
+
+    def fed(boxes, scores, classes):
+        out = select(boxes, scores, classes)
+        rois = out[0] + (cpu_rois.to(out[0].device) - out[0]).detach()
+        return (rois,) + tuple(out[1:])
+    gpu.model.select_rois = fed
+    _, g_f = gpu.loss_and_grads(gst, b)
+    del gpu.model.select_rois
+    errs = grad_gaps(g_c, g_f)
+    # the CPU's own spread: the same step with its normalised input
+    # moved by a relative 1e-6 (the size of the card's f32 differences)
+    normalise, gen = cpu.normalise, torch.Generator().manual_seed(rank)
+    cpu.normalise = lambda images: (lambda x: x * (1.0 + 1e-6 * torch.randn(
+        x.shape, generator=gen)))(normalise(images))
+    _, g_n = cpu.loss_and_grads(st, b)
+    del cpu.normalise
+    spread = dict((k, e) for e, k in grad_gaps(g_c, g_n))
+    beyond = [(e, k, spread[k]) for e, k in errs
+              if e > 1e-3 and e > 2.0 * spread[k]]
+    _, m_c = cpu.train_step(st, b)
+    _, m_g = gpu.train_step(gst, b)
+    worst = max(abs(float(m_g[k]) - float(m_c[k]))
+                / max(abs(float(m_c[k])), 1e-30) for k in m_c)
+    out["small"] = {"rois_equal": same, "roi_gap": roi_gap,
+                    "n_rois": int(a.roi_valid.sum()),
+                    "own_roi_grad_gaps": own[:6],
+                    "grad_gap": errs[0][0], "grad_worst": errs[0][1],
+                    "n_grads": len(errs), "loss_gap": worst,
+                    "n_within_1e-3": sum(e <= 1e-3 for e, _ in errs),
+                    "beyond_1e-3": [(e, k, spread[k]) for e, k in errs
+                                    if e > 1e-3],
+                    "unexplained": beyond,
+                    "s2": float(m_c["s2"]),
+                    "params_sha256": sha(gst.flat_params)}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_data_parallel(torch, card):
+    """Phase "data-parallel path". (a) two ranks on cuda:0 over gloo, each
+    a process of its own with a hard timeout (`dp_rank`), the flagship
+    preset at full width: 5 steps at the defaults, one with per-class
+    soft-NMS (B.2 counted on each rank), one with an inf batch on rank 1
+    alone; both ranks skip, and their params, moments, counts, step and
+    SyncBN statistics are bitwise equal. (b) in the same ranks, the tiny
+    f32 two-rank step on the card against the CPU. (c) a one-rank NCCL
+    group from the environment (`parallel.init_from_env`): the full-width
+    step p50 in it and in the plain Trainer, in turns, and the flat
+    gradient's all-reduce (765 MB of f32) under NCCL and under gloo.
+    (d) `python -m rrnet_torch.scripts.eval --data-parallel` on the
+    synthetic split writes the same result files, byte for byte, as
+    without the flag (rank 0's checkpoint of (a)). Returns (the JSON
+    entry, hard_nms and soft_nms_classes launches of each rank)."""
+    import socket
+    import subprocess
+    import tempfile
+    import torch.distributed as dist
+    from rrnet_torch.data.synth import make_synth_dataset
+    from rrnet_torch.models.layers import set_sync_group
+    from rrnet_torch.parallel import create_group, init_from_env, mesh
+    from rrnet_torch.profile_train import synthetic_batch, train_config
+    from rrnet_torch.scripts import eval as eval_cli
+    from rrnet_torch.train import Trainer
+
+    def free_port():
+        with socket.socket() as so:
+            so.bind(("localhost", 0))
+            return so.getsockname()[1]
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    entry = {}
+    # (a) and (b): two ranks on cuda:0 over gloo
+    port, world = free_port(), 2
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        log = open(os.path.join(tmp.name, f"rank{r}.log"), "w")
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke;"
+                f" chip_smoke.dp_rank({r}, {world}, {port}, "
+                f"{os.path.join(tmp.name, f'rank{r}.json')!r}, "
+                f"{os.path.join(tmp.name, 'ckpt')!r})")
+        procs.append((subprocess.Popen([sys.executable, "-c", code],
+                                       cwd=HERE, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + 300
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            if (any(p.poll() not in (None, 0) for p, _ in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate(timeout=60)
+            log.close()
+    logs = [open(log.name).read() for _, log in procs]
+    for r, ((p, _), text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"data-parallel rank {r} exited with "
+                                 f"{p.returncode}:\n{text[-6000:]}")
+    ranks = [json.load(open(os.path.join(tmp.name, f"rank{r}.json")))
+             for r in range(world)]
+    entry["two_ranks_s"] = time.perf_counter() - t0
+    r0, r1 = ranks
+    want = {"hard_nms": 5, "soft_nms": 0, "soft_nms_classes": 0}
+    want_soft = {"hard_nms": 0, "soft_nms": 0, "soft_nms_classes": 1}
+    per_step = 2 * r0["n_bn"] + 3
+    for r in ranks:
+        d = r["defaults"]
+        if (d["launches"] != want or r["soft_nms"]["launches"] != want_soft
+                or d["collectives_per_step"] != per_step):
+            raise AssertionError(f"rank {r['rank']}: launches "
+                                 f"{d['launches']} / soft-NMS "
+                                 f"{r['soft_nms']['launches']}, "
+                                 f"{d['collectives_per_step']} collectives "
+                                 f"a step (want {want}, {want_soft}, "
+                                 f"{per_step})")
+        if (not all(np.isfinite(d["totals"])) or any(d["skipped"])
+                or not d["totals"][-1] < d["totals"][0]):
+            raise AssertionError(f"rank {r['rank']}: totals {d['totals']}, "
+                                 f"skipped {d['skipped']}")
+        if r["inf"]["skipped"] != 1.0 or not r["inf"]["state_unchanged"]:
+            raise AssertionError(f"rank {r['rank']}: inf batch on rank 1 "
+                                 f"{r['inf']}")
+        sm = r["small"]
+        if not (sm["rois_equal"] and sm["roi_gap"] <= 1e-3
+                and not sm["unexplained"] and sm["loss_gap"] <= 1e-4
+                and sm["s2"] > 0):
+            raise AssertionError(f"rank {r['rank']}: tiny two-rank step "
+                                 f"cuda vs cpu {sm}")
+    if r0["sha256"] != r1["sha256"]:
+        diff = [k for k in r0["sha256"] if r0["sha256"][k] != r1["sha256"][k]]
+        raise AssertionError(f"the two ranks' states differ in {diff}")
+    if r0["defaults"]["totals"] != r1["defaults"]["totals"]:
+        raise AssertionError("the two ranks logged other totals")
+    if r0["small"]["params_sha256"] != r1["small"]["params_sha256"]:
+        raise AssertionError("tiny two-rank step: the ranks' params differ")
+    ms = [x for r in ranks for x in r["defaults"]["ms"][1:]]
+    entry["two_ranks_gloo_cuda0"] = {
+        "preset": "rrnet", "images_per_rank": 2, "crop": [512, 512],
+        "bn": r0["n_bn"], "collectives_per_step": per_step,
+        "step_ms": [r["defaults"]["ms"] for r in ranks],
+        "step_p50_ms": float(np.percentile(ms, 50)),
+        "soft_nms_step_ms": [r["soft_nms"]["ms"] for r in ranks],
+        "launches": [{"defaults": r["defaults"]["launches"],
+                      "soft_nms": r["soft_nms"]["launches"]} for r in ranks],
+        "totals": r0["defaults"]["totals"], "built_s": r0["built_s"],
+        "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
+        "state_sha256_equal": True, "inf_on_rank1_skipped_both": True}
+    entry["tiny_two_ranks_cuda_vs_cpu"] = [r["small"] for r in ranks]
+    print(f"  two ranks on cuda:0 over gloo (rrnet, full width, bf16, 2 x "
+          f"512x512 a rank): 5 steps at the defaults, totals "
+          f"{[round(x, 4) for x in r0['defaults']['totals']]}, step p50 "
+          f"{entry['two_ranks_gloo_cuda0']['step_p50_ms']:.2f} ms (both "
+          f"ranks on one card; {[[round(x, 1) for x in r['defaults']['ms']] for r in ranks]}); "
+          f"{per_step} collectives a step ({r0['n_bn']} SyncBN forward + "
+          f"backward, gradient, skip flag, metrics); launches per rank "
+          f"{r0['defaults']['launches']}, soft-NMS step "
+          f"{r0['soft_nms']['launches']}; inf on rank 1 alone: both "
+          f"skipped, state bitwise unchanged; params, moments, counts, "
+          f"step and SyncBN statistics sha256-equal on both ranks; alone, "
+          f"an all_reduce over gloo of the flat gradient "
+          f"{r0['all_reduce_ms']['flat_gradient']:.2f} ms and of one "
+          f"SyncBN's moments (2 x 256 f32) "
+          f"{r0['all_reduce_ms']['syncbn_2x256']:.3f} ms (rank 0)",
+          flush=True)
+    for r in ranks:
+        sm = r["small"]
+        print(f"  rank {r['rank']}: tiny two-rank step f32 (soft-NMS) cuda == "
+              f"cpu: {sm['n_rois']} ROIs equal (boxes within "
+              f"{sm['roi_gap']:.3g}); losses within {sm['loss_gap']:.3g} "
+              f"(s2 {sm['s2']:.4f}); with the card's own ROIs the worst "
+              f"gradients {[(round(e, 5), k) for e, k in sm['own_roi_grad_gaps'][:3]]}; "
+              f"with the CPU's ROIs fed {sm['n_within_1e-3']} of "
+              f"{sm['n_grads']} all-meaned gradients within 1e-3 of their "
+              f"largest magnitude, the others (gap, name, the CPU's own "
+              f"shift under 1e-6 input noise) "
+              f"{[(round(e, 5), k, round(n, 5)) for e, k, n in sm['beyond_1e-3'][:12]]}"
+              f"{' ...' if len(sm['beyond_1e-3']) > 12 else ''}", flush=True)
+
+    # (c) a one-rank NCCL group from the environment
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    dev = init_from_env("cuda", timeout_s=120)
+    try:
+        cfg = train_config()
+        dg = create_group(cfg.mesh, dev)
+        tr = Trainer(cfg, device=dev, group=dg)
+        state = tr.init_state(generator=torch.Generator().manual_seed(
+            cfg.seed))
+        batch = synthetic_batch(np.random.RandomState(cfg.seed))
+        times = {"nccl_world1": [], "plain": []}
+        c0 = mesh.collectives
+        for mode in ("plain", "nccl_world1", "nccl_world1", "plain"):
+            group = dg if mode != "plain" else None
+            tr.group = group
+            set_sync_group(tr.model, group)
+            for i in range(4):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, _ = tr.train_step(state, batch)
+                torch.cuda.synchronize()
+                if i:
+                    times[mode].append((time.perf_counter() - t) * 1e3)
+        issued = mesh.collectives - c0
+        flat = torch.ones(state.flat_params.numel(), dtype=torch.float32,
+                          device=dev)
+        del tr, state
+        gloo = dist.new_group(backend="gloo")
+        reduce_ms = {}
+        for name, group, reps in (("nccl", None, 10), ("gloo", gloo, 3)):
+            for _ in range(2):
+                dist.all_reduce(flat, group=group)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                dist.all_reduce(flat, group=group)
+            torch.cuda.synchronize()
+            reduce_ms[name] = (time.perf_counter() - t) * 1e3 / reps
+    finally:
+        dist.destroy_process_group()
+    entry["one_rank_nccl"] = {
+        "step_p50_ms": float(np.percentile(times["nccl_world1"], 50)),
+        "plain_step_p50_ms": float(np.percentile(times["plain"], 50)),
+        "step_ms": times, "collectives_issued": issued,
+        "flat_grad_bytes": flat.numel() * 4,
+        "all_reduce_ms": reduce_ms}
+    if issued:
+        raise AssertionError(f"a world of one rank issued {issued} "
+                             "collectives")
+    c = entry["one_rank_nccl"]
+    print(f"  one-rank NCCL group from the environment on {card}: step p50 "
+          f"{c['step_p50_ms']:.2f} ms against the plain Trainer's "
+          f"{c['plain_step_p50_ms']:.2f} (4x512x512, in turns plain, group, "
+          f"group, plain; {issued} collectives issued); all_reduce of the "
+          f"flat gradient ({c['flat_grad_bytes'] / 1e6:.1f} MB f32) at world "
+          f"1: NCCL {reduce_ms['nccl']:.3f} ms, gloo {reduce_ms['gloo']:.3f} "
+          f"ms (no multi-card number: one card)", flush=True)
+
+    # (d) the eval CLI with and without --data-parallel
+    root = os.path.join(tmp.name, "synth")
+    make_synth_dataset(root, n_train=1, n_val=4, seed=219)
+
+    def run_eval(name, *extra):
+        res = eval_cli.main(["--config", "rrnet", "--ckpt",
+                             os.path.join(tmp.name, "ckpt"), "--no-score",
+                             *extra, f"data_root={root}",
+                             f"val.result_dir={os.path.join(tmp.name, name)}"])
+        d = res["result_dir"]
+        return {f: open(os.path.join(d, f), "rb").read()
+                for f in sorted(os.listdir(d))}
+
+    t0 = time.perf_counter()
+    plain = run_eval("plain")
+    split = run_eval("split", "--data-parallel")
+    if plain != split or len(plain) != 4:
+        raise AssertionError(f"eval --data-parallel wrote other files "
+                             f"({len(plain)} / {len(split)})")
+    entry["eval_data_parallel"] = {
+        "devices": eval_cli.local_devices("cuda"), "files": len(plain),
+        "rows": sum(v.count(b"\n") for v in plain.values()),
+        "byte_equal": True, "seconds": time.perf_counter() - t0}
+    print(f"  python -m rrnet_torch.scripts.eval --data-parallel (devices "
+          f"{entry['eval_data_parallel']['devices']}) on the synthetic val "
+          f"split (4 images, rank 0's checkpoint): "
+          f"{entry['eval_data_parallel']['files']} result files byte-equal "
+          f"to the run without the flag "
+          f"({entry['eval_data_parallel']['rows']} rows)", flush=True)
+    tmp.cleanup()
+    launches = {"hard_nms": [r["defaults"]["launches"]["hard_nms"]
+                             for r in ranks],
+                "soft_nms_classes": [r["soft_nms"]["launches"][
+                    "soft_nms_classes"] for r in ranks]}
+    return entry, launches
+
+
 def main(argv=None) -> int:
     import argparse
     from pathlib import Path
@@ -4018,12 +4449,21 @@ def main(argv=None) -> int:
     classes["microbatching_launches"] = (
         batching["soft_nms_4x2"]["soft_nms_classes_launches"])
 
+    phase("data-parallel path")
+    t0 = time.perf_counter()
+    data_parallel, dp_launches = run_data_parallel(torch, card)
+    data_parallel["seconds"] = time.perf_counter() - t0
+    print(f"  phase took {data_parallel['seconds']:.1f} s", flush=True)
+    hard["data_parallel_launches"] = dp_launches["hard_nms"]
+    classes["data_parallel_launches"] = dp_launches["soft_nms_classes"]
+
     print(json.dumps({"data": data}), flush=True)
     print(json.dumps({"eval_protocol": protocol}), flush=True)
     print(json.dumps({"retinanet": retina}), flush=True)
     print(json.dumps({"hrnetv2_attention": hrnet}), flush=True)
     print(json.dumps({"int8": int8}), flush=True)
     print(json.dumps({"microbatching": batching}), flush=True)
+    print(json.dumps({"data_parallel": data_parallel}), flush=True)
     print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard,
                                   int8_conv, int8_pack]}), flush=True)
     print(card, flush=True)

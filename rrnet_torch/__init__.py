@@ -47,6 +47,9 @@ CUDA kernel `csrc/soft_nms_classes.cu`; the data pipeline (`data.visdrone`,
 synthetic train -> eval -> AP gate (`python -m
 rrnet_torch.scripts.synth_gate`); the presets' eval protocol, CenterNet
 and RetinaNet; the fourth preset, `rrnet_hrnetv2_attention` (HRNetV2-w40
-with the windowed self-attention of `models.modules`); and every backbone
-of the JAX registry (`models.backbones.get_backbone`).
+with the windowed self-attention of `models.modules`); every backbone
+of the JAX registry (`models.backbones.get_backbone`); and data-parallel
+training with SyncBN over `torch.distributed` (`parallel`,
+`train.Trainer(group=...)`, the train CLI's `--multihost`, the eval
+CLI's `--data-parallel`).
 """

@@ -1,9 +1,10 @@
 """Configuration tree: a copy of `rrnet_tpu/config.py`'s dataclasses.
 
 The field names, defaults and override semantics are the JAX package's,
-so one override list configures both implementations. The JAX package's
-`MeshConfig` (a `jax.sharding.Mesh` description) has no counterpart yet:
-the port's multi-card layout comes with its train slice.
+so one override list configures both implementations. `MeshConfig`
+describes the data-parallel layout: in the JAX package a
+`jax.sharding.Mesh`, here a `torch.distributed` process group
+(`parallel.create_group`), one rank a device.
 """
 
 from __future__ import annotations
@@ -100,6 +101,17 @@ class ModelConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The data-parallel layout (the JAX package's mesh description). Axis
+    sizes of -1 mean "every rank"; no model uses the model axis, so
+    `parallel.create_group` refuses `model_parallel > 1`."""
+    data_axis: str = "data"
+    data_parallel: int = -1      # -1 => the process group's world size
+    model_axis: str = "model"
+    model_parallel: int = 1
+
+
+@dataclass
 class Config:
     seed: int = 219
     dataset: str = "drones_det"
@@ -112,6 +124,7 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     val: ValConfig = field(default_factory=ValConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -1,4 +1,4 @@
-"""YUV 4:2:0 image transport (port of `rrnet_tpu/data/yuv420.py:33-139`).
+"""YUV 4:2:0 image transport (port of `rrnet_tpu/data/yuv420.py:33-160`).
 
 The host packs uint8 RGB into planar I420 wire rows (Y plane, then the
 2x2-subsampled U and V planes: 1.5 bytes a pixel, half of RGB's), and
@@ -78,3 +78,24 @@ def unpack_yuv420_device(flat: torch.Tensor, h: int, w: int) -> torch.Tensor:
     u = flat[:, h * w:h * w + q].reshape(n, h // 2, w // 2)
     v = flat[:, h * w + q:].reshape(n, h // 2, w // 2)
     return yuv420_to_rgb_device(y, torch.stack([u, v], dim=-1))
+
+
+def yuv420_to_rgb_host(y_u8: np.ndarray, uv_u8: np.ndarray) -> np.ndarray:
+    """The device inverse in numpy (to look at packed train batches on the
+    host): Y (B, H, W), UV (B, H/2, W/2, 2) uint8 -> (B, H, W, 3) uint8
+    RGB."""
+    y = (y_u8.astype(np.float32) - 16.0) * (255.0 / 219.0)
+    uv = uv_u8.astype(np.float32)
+    for axis in (1, 2):
+        idx = np.minimum(np.arange(1, uv.shape[axis] + 1), uv.shape[axis] - 1)
+        nxt = np.take(uv, idx, axis=axis)
+        pair = np.stack([uv, (uv + nxt) * 0.5], axis=axis + 1)
+        shape = list(uv.shape)
+        shape[axis] *= 2
+        uv = pair.reshape(shape)
+    cb = uv[..., 0] - 128.0
+    cr = uv[..., 1] - 128.0
+    rgb = np.stack([y + 1.59602 * cr,
+                    y - 0.39176 * cb - 0.81297 * cr,
+                    y + 2.01723 * cb], axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)

@@ -30,15 +30,25 @@ when `calibrate` was never called. The mode is entered inside
 `dispatch_batch`, around the forwards, so that it holds in whatever
 thread dispatches (a context variable set by another thread is not
 seen there).
+
+`devices=[...]` evaluates data-parallel within one process (the JAX
+package's `Evaluator(mesh=)`, which shards each batch over a mesh's data
+axis): one model replica per device, each batch split into contiguous
+slices, one a device, staged and dispatched replica by replica (their
+device work overlaps), and the rows gathered back in order. int8
+calibration runs on every slice and keeps each conv's largest absmax,
+which is the whole batch's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -71,6 +81,12 @@ class StagedBatch(NamedTuple):
     hws: List[Tuple[int, int]]
     tight: Tuple[int, int]  # wire shape (padding to bucket added on device)
     valid_hw: torch.Tensor  # (B, 2) int32 [h, w] of each image, on the device
+
+
+class ShardedBatch(NamedTuple):
+    """A batch split over a data-parallel Evaluator's replicas: (replica,
+    its slice's StagedBatch or dispatch handle), in batch order."""
+    parts: List[Tuple["Evaluator", object]]
 
 
 def _flip_valid_width(img: torch.Tensor, w_valid: torch.Tensor
@@ -108,7 +124,8 @@ class Evaluator:
                  device: Union[str, torch.device] = "cuda",
                  bucket_multiple: int = 128, decode_topk: int = 250,
                  fuse_flip: bool = True, stage2_decode: str = "full",
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None,
+                 devices: Optional[Sequence[Union[str, torch.device]]] = None):
         """model: the port's RRNet, CenterNet or RetinaNet (moved to
         `device`, set to eval). decode_topk: CenterNet's top-k per image;
         RetinaNet takes 4 * decode_topk anchors (at most all of them) into
@@ -116,7 +133,9 @@ class Evaluator:
         forward of 2B images (True) or two of B. stage2_decode (RRNet):
         "full" applies the stage-2 deltas, "stage1" reports the stage-1
         ROIs, "zero" decodes with all-zero deltas. quantize: None or
-        "int8" (module docstring)."""
+        "int8" (module docstring). devices: evaluate data-parallel over
+        these devices (`device` is then the first), one replica of
+        `model` each (module docstring)."""
         if cfg.model.name not in ("rrnet", "centernet", "retinanet"):
             raise NotImplementedError(f"Evaluator for {cfg.model.name!r} "
                                       "is not ported yet")
@@ -127,6 +146,8 @@ class Evaluator:
             raise ValueError(f"quantize must be None or 'int8', got "
                              f"{quantize!r}")
         self.cfg = cfg
+        if devices:
+            device = devices[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.quantize = quantize
@@ -145,6 +166,12 @@ class Evaluator:
         self._tight_cache: Dict[Tuple[int, int], Tuple[int, int]] = {}
         self._anchors: Dict[Tuple[int, int], torch.Tensor] = {}
         self._pad_scratch: Dict[Tuple, np.ndarray] = {}
+        self._replicas = [self] + [
+            Evaluator(cfg, copy.deepcopy(self.model), device=d,
+                      bucket_multiple=bucket_multiple,
+                      decode_topk=decode_topk, fuse_flip=fuse_flip,
+                      stage2_decode=stage2_decode, quantize=quantize)
+            for d in (devices or ())[1:]]
 
     # ------------------------------------------------------------------
     def _normalize(self, staged: StagedBatch) -> torch.Tensor:
@@ -191,10 +218,21 @@ class Evaluator:
 
     def calibrate(self, images) -> Dict[str, float]:
         """Record every eligible conv's input absmax on one representative
-        batch (a list of images, or a StagedBatch): one forward per
-        distinct scale of `val.scales` (a mirrored image has the same
+        batch (a list of images, or what `stage` made of one): one forward
+        per distinct scale of `val.scales` (a mirrored image has the same
         values, so no flip), the elementwise max kept. Stores and returns
         the scales {conv name: absmax}; raises if no conv was eligible."""
+        if len(self._replicas) == 1:
+            return self._calibrate(images)
+        parts = images if isinstance(images, ShardedBatch) else \
+            self.stage(list(images))
+        found = [r._calibrate(st) for r, st in parts.parts]
+        scales = {k: max(f[k] for f in found) for k in found[0]}
+        for r in self._replicas:
+            r._quant_scales = scales
+        return scales
+
+    def _calibrate(self, images) -> Dict[str, float]:
         staged = images if isinstance(images, StagedBatch) else \
             self._upload(list(images))
         stats = []
@@ -218,9 +256,10 @@ class Evaluator:
         """Load a new state dict into the model; the calibration scales
         and the packed int8 weights are dropped (the next int8 dispatch
         calibrates again)."""
-        self.model.load_state_dict(state)
-        self._quant_scales = None
-        drop_int8_weights(self.model)
+        for r in self._replicas:
+            r.model.load_state_dict(state)
+            r._quant_scales = None
+            drop_int8_weights(r.model)
 
     def _quant(self):
         """The int8 mode with this Evaluator's scales, or nothing."""
@@ -326,6 +365,18 @@ class Evaluator:
         valid_hw = wire[n * row:].view(torch.int32).view(n, 2)
         return StagedBatch(payload, (bh, bw), hws, (th, tw), valid_hw)
 
+    def stage(self, images):
+        """Ship a same-bucket list of images to the device(s): a
+        StagedBatch, or with several replicas a ShardedBatch of contiguous
+        slices (sizes differing by at most one, empty ones left out)."""
+        if len(self._replicas) == 1:
+            return self._upload(images)
+        cuts = np.cumsum([0] + [len(a) for a in np.array_split(
+            np.arange(len(images)), len(self._replicas))])
+        return ShardedBatch([(r, r._upload(images[a:b])) for r, a, b in
+                             zip(self._replicas, cuts[:-1], cuts[1:])
+                             if b > a])
+
     def _scaled_shape(self, bucket: Tuple[int, int], scale: float
                       ) -> Tuple[int, int]:
         return (_round_up(int(bucket[0] * scale), self.bucket_multiple),
@@ -334,8 +385,18 @@ class Evaluator:
     # ------------------------------------------------------------------
     def dispatch_batch(self, images):
         """Queue the device work of every (scale, flip) program for a
-        same-bucket batch (a list of HWC uint8 images, or a StagedBatch);
-        returns a handle for `collect`."""
+        same-bucket batch (a list of HWC uint8 images, or what `stage`
+        made of one); returns a handle for `collect`."""
+        if len(self._replicas) > 1:
+            parts = images if isinstance(images, ShardedBatch) else \
+                self.stage(images)
+            if self.quantize is not None and self._quant_scales is None:
+                self.calibrate(parts)   # lazily, on the first batch
+            return ShardedBatch([(r, r._dispatch(st))
+                                 for r, st in parts.parts])
+        return self._dispatch(images)
+
+    def _dispatch(self, images):
         cfg = self.cfg
         staged = images if isinstance(images, StagedBatch) else \
             self._upload(images)
@@ -371,6 +432,8 @@ class Evaluator:
         """Per image, the rows of every program of a dispatched batch in
         original pixels (flip and scale undone), concatenated and sorted
         by score (stable)."""
+        if isinstance(handle, ShardedBatch):
+            return [rows for r, h in handle.parts for rows in r.gather(h)]
         pending, hws = handle
         n = len(hws)
         per_img: List[List[np.ndarray]] = [[] for _ in range(n)]
@@ -464,7 +527,7 @@ class Evaluator:
             imgs = [it["image"] for it in q]
             if pad_to and len(imgs) < pad_to:
                 imgs = imgs + [imgs[-1]] * (pad_to - len(imgs))
-            staged.append((uploader.submit(self._upload, imgs), names))
+            staged.append((uploader.submit(self.stage, imgs), names))
             pump()
 
         try:

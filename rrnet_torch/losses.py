@@ -1,13 +1,17 @@
-"""Detection losses (port of `rrnet_tpu/losses.py:24-115`), NHWC maps.
+"""Detection losses (port of `rrnet_tpu/losses.py:24-127`), NHWC maps.
 
   * `clamped_sigmoid`: sigmoid clamped to [eps, 1 - eps] before the
     heatmap focal loss;
   * `focal_loss_hm`: CornerNet/CenterNet heatmap focal loss, normalised
-    by the positive count, or the raw negative sum when there is none;
+    by the positive count, or the raw negative sum when there is none
+    (`focal_loss_hm_from_logits` on logits);
   * `reg_l1_loss`: masked L1 at the GT centre indices, divided by the
     mask broadcast over channels (positives x C) + 1e-4;
   * `focal_loss`: RetinaNet's sigmoid focal loss on logits;
-  * `smooth_l1_loss`: torch's smooth-L1.
+  * `smooth_l1_loss`: torch's smooth-L1;
+  * `kl_feature_loss`: the reference's unused heteroscedastic
+    feature-distillation loss;
+  * `giou_loss`, from `ops.box`.
 
 Integer powers are written as products, in the order XLA's
 `integer_pow` multiplies.
@@ -16,6 +20,8 @@ Integer powers are written as products, in the order XLA's
 from __future__ import annotations
 
 import torch
+
+from rrnet_torch.ops.box import giou_loss  # noqa: F401  (re-export)
 
 
 def clamped_sigmoid(logits: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
@@ -38,6 +44,11 @@ def focal_loss_hm(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     num_pos = torch.sum(pos)
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / num_pos.clamp(min=1.0))
+
+
+def focal_loss_hm_from_logits(logits: torch.Tensor,
+                              gt: torch.Tensor) -> torch.Tensor:
+    return focal_loss_hm(clamped_sigmoid(logits), gt)
 
 
 def reg_l1_loss(pred_map: torch.Tensor, mask: torch.Tensor,
@@ -82,3 +93,15 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def kl_feature_loss(small_alpha: torch.Tensor, large_alpha: torch.Tensor,
+                    small_feats: torch.Tensor,
+                    large_feats: torch.Tensor) -> torch.Tensor:
+    """The reference's heteroscedastic feature-distillation loss core
+    (modules/loss/functional.py:106-108), an unused experiment there;
+    the caller detaches the `large_*` inputs."""
+    sl1 = smooth_l1_loss(small_feats, large_feats, reduction="none")
+    loss = 0.5 * (small_alpha - large_alpha) + \
+        (torch.exp(large_alpha) + sl1) / (2.0 * torch.exp(small_alpha))
+    return torch.mean(loss)

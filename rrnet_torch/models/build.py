@@ -11,20 +11,22 @@ import torch
 from rrnet_torch.config import Config
 from rrnet_torch.models.backbones import get_backbone
 from rrnet_torch.models.centernet import CenterNet
-from rrnet_torch.models.layers import dtype_of, init_weights
+from rrnet_torch.models.layers import dtype_of, init_weights, set_sync_group
 from rrnet_torch.models.retinanet import RetinaNet
 from rrnet_torch.models.rrnet import RRNet
 from rrnet_torch.utils.device import resolve_device
 
 
 def build_model(cfg: Config, device: Union[str, torch.device] = "cuda",
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, group=None):
     """The configured detector in eval mode on `device`, its weights drawn
     on the CPU from `generator` (default: seeded with cfg.seed), so one
     seed gives the same weights on every machine. Load trained weights
     with `load_state_dict` (see utils.from_flax). 'rrnet' (with the
     self-attention where `model.with_self_attention` is set),
-    'centernet' and 'retinanet' are ported."""
+    'centernet' and 'retinanet' are ported. `group` (a
+    `parallel.DataGroup`) makes its batch norms SyncBN over the group
+    where `model.sync_bn` is set, as the JAX package's `bn_axis` does."""
     dev = resolve_device(device)
     m = cfg.model
     if m.name == "centernet":
@@ -50,6 +52,8 @@ def build_model(cfg: Config, device: Union[str, torch.device] = "cuda",
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)
+    if m.sync_bn:
+        set_sync_group(model, group)
     return model.to(dev).eval()
 
 

@@ -11,7 +11,12 @@ form (`_InferenceBN`, layers.py:192-222): one affine folded from the
 running statistics in f32, then cast to the activation dtype. In train
 mode it is flax's `nn.BatchNorm` (layers.py:225-246): f32 batch
 statistics with the biased variance, used both to normalise and for the
-running update `running = 0.9 * running + 0.1 * batch`.
+running update `running = 0.9 * running + 0.1 * batch`. With a
+data-parallel group set (`set_sync_group`, which `build_model` calls for
+the presets with `model.sync_bn`) it is flax's `BatchNorm(axis_name=...)`:
+the batch's E[x] and E[x^2] are averaged over the ranks in one
+collective before the variance is formed, so every rank normalises and
+updates its running statistics with the same synced values.
 
 Every convolution of the port goes through `conv2d`, which runs an f32
 convolution at f32 precision in its forward and its backward, whatever
@@ -46,6 +51,7 @@ from torch import nn
 from torch.nn.modules.utils import _pair
 
 from rrnet_torch.ops import int8_conv
+from rrnet_torch.parallel.mesh import all_mean
 
 
 @contextlib.contextmanager
@@ -303,6 +309,7 @@ class BatchNorm(nn.Module):
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.group = None       # parallel.DataGroup of SyncBN, or None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
@@ -333,14 +340,28 @@ class BatchNorm(nn.Module):
         # statistics in at least f32, as flax's _compute_stats
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean((0, 2, 3))
+        sq = (xf * xf).mean((0, 2, 3))
+        if self.group is not None:
+            # flax's _compute_stats: one pmean of the stacked moments
+            mean, sq = all_mean(torch.stack([mean, sq]), self.group)
         # flax's fast variance E[x^2] - E[x]^2, clipped at 0: biased
-        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        var = (sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():       # in place, as torch's BatchNorm2d
             self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
             self.running_var.mul_(0.9).add_(var, alpha=0.1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
+
+
+def set_sync_group(model: nn.Module, group) -> nn.Module:
+    """Make every `BatchNorm` of `model` a SyncBN over the data-parallel
+    `group` (a `parallel.DataGroup`; None for per-rank statistics). Only
+    the train form syncs. Returns the model."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return model
 
 
 class ConvBN(nn.Module):

@@ -1,4 +1,4 @@
-"""Fixed-shape NMS (port of `rrnet_tpu/ops/nms.py:46-197`).
+"""Fixed-shape NMS (port of `rrnet_tpu/ops/nms.py:46-229`).
 
 Every function takes a batch of fixed-K box sets with optional validity
 masks and class ids, and returns fixed-K results, as the JAX package's
@@ -7,6 +7,8 @@ decay to boxes of the same class.
 
 `soft_nms` here is the plain sequential version: the semantic reference
 of the CUDA kernel in `ops/soft_nms.py`, which runs the same loop.
+`batched_nms` runs `ops.hard_nms.hard_nms`: the plain version here on
+the CPU, the CUDA kernel on the card (no fallback).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 
 from rrnet_torch.ops.box import pairwise_iou
+from rrnet_torch.ops.heatmap import topk_desc
 
 _METHODS = {"linear": 1, "gaussian": 2, "hard": 0}
 NEG = -1e30   # score of invalid slots (pallas_nms.py `_NEG`)
@@ -142,3 +145,34 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
     if return_work:
         return cur, selected, rank, work
     return cur, selected, rank
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                class_ids: torch.Tensor, iou_threshold: float,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-class hard NMS by the class-offset trick: each image's boxes
+    are translated by class id times a span beyond their coordinate
+    extent, so one class-agnostic pass never suppresses across classes.
+    boxes (B, K, 4) xyxy, scores (B, K), class_ids (B, K), valid (B, K)
+    or None; returns the (B, K) keep mask."""
+    from rrnet_torch.ops.hard_nms import hard_nms as nms
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    # the span exceeds each image's full extent (decoded boxes may have
+    # negative coordinates), so class blocks never touch
+    span = 2.0 * torch.where(valid[..., None], boxes.abs(),
+                             0.0).amax(dim=(1, 2)) + 1.0
+    shifted = boxes + class_ids.to(boxes.dtype)[..., None] * span[:, None,
+                                                                  None]
+    return nms(shifted.contiguous(), scores, iou_threshold, valid=valid)
+
+
+def topk_after_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                   keep: torch.Tensor, k: int):
+    """The k highest-scoring kept boxes of each image as a dense block:
+    (boxes (B, k, 4), scores (B, k), valid (B, k), indices (B, k)), ties
+    broken toward the lower index as `lax.top_k` does."""
+    top, idx = topk_desc(torch.where(keep, scores, -torch.inf), k)
+    out = torch.gather(boxes, 1, idx[..., None].expand(-1, -1,
+                                                       boxes.shape[-1]))
+    return out, top, top > -torch.inf, idx

@@ -1,4 +1,4 @@
-"""ROI-align (port of `rrnet_tpu/ops/roi_align.py:25-99`).
+"""ROI-align (port of `rrnet_tpu/ops/roi_align.py:25-106`).
 
 The legacy (aligned=False) torchvision op the reference ran: no
 half-pixel shift, ROI extent clamped to >= 1, bilinear samples on a
@@ -73,3 +73,11 @@ def roi_align(feat: torch.Tensor, rois: torch.Tensor,
            + at(y1i, x1i) * (ly * lx)[..., None])
     val = torch.where(oob[..., None], 0.0, val)
     return val.reshape(*grid, c).mean(dim=(3, 5))
+
+
+def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor, **kw
+                      ) -> torch.Tensor:
+    """The JAX package's vmap of its one-image `roi_align` over the batch:
+    feats (B, H, W, C), rois (B, R, 4) -> (B, R, out_h, out_w, C). The
+    port's `roi_align` is batched already."""
+    return roi_align(feats, rois, **kw)

@@ -113,3 +113,16 @@ def render_batch(annos: torch.Tensor, valid: torch.Tensor,
 
     return CenterNetTargets(hm=hm, wh=wh, ind=ind, offset=offset,
                             reg_mask=reg_mask.float())
+
+
+def render_centernet_targets(annos: torch.Tensor, valid: torch.Tensor,
+                             feat_shape: Tuple[int, int],
+                             scale_factor: int = 4, num_classes: int = 10,
+                             chunk: int = 32, class_agnostic: bool = False
+                             ) -> CenterNetTargets:
+    """The targets of one image (the JAX package's per-image function,
+    which `render_batch` vmaps): annos (N, >=6), valid (N,); the fields
+    without the batch axis, hm (H, W, C)."""
+    t = render_batch(annos[None], valid[None], feat_shape, scale_factor,
+                     num_classes, chunk, class_agnostic)
+    return CenterNetTargets(*(f[0] for f in t))

@@ -3,24 +3,29 @@ scripts/{RRNet,CTNet}/eval.py):
 
     python -m rrnet_torch.scripts.eval --config rrnet --ckpt log/TwoStageNet
         [--split val] [--max-images N] [--batch 4] [--no-score]
-        [--quantize int8] [--device cuda|cpu] [key=value ...]
+        [--quantize int8] [--data-parallel] [--device cuda|cpu]
+        [key=value ...]
 
 Restores a checkpoint written by `python -m rrnet_torch.scripts.train`
 (`--ckpt` is a log directory, whose newest `ckp-N` is taken, or a
 `ckp-N` path), runs the preset's eval protocol over the split
 (`val.scales`, flip TTA for CenterNet, the host soft-NMS merge when
 `val.auto_test=False`), writes VisDrone result txts to `val.result_dir`
-and scores them with the VisDrone AP evaluator. One card (or the CPU).
+and scores them with the VisDrone AP evaluator. One card (or the CPU)
+by default.
 `--quantize int8` runs the body convolutions as int8
 (`Evaluator(quantize="int8")`), calibrated on the first batch at every
-protocol scale.
+protocol scale. `--data-parallel` splits each batch over every card of
+the process (`Evaluator(devices=...)`, one model replica a card; the
+CPU counts as one device), `--batch` rounded up to a multiple of their
+count.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -53,6 +58,14 @@ def load_checkpoint(model: torch.nn.Module, state, ckpt_path: str,
     model.load_state_dict(state.state_dict())
 
 
+def local_devices(device: str) -> List[str]:
+    """The devices of `--data-parallel`: every card this process sees for
+    a CUDA `device`, else `device` alone."""
+    if torch.device(device).type == "cuda":
+        return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Returns {"result_dir": ..., "scores": AP dict or None}."""
     ap = argparse.ArgumentParser(
@@ -70,6 +83,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--quantize", default=None, choices=["int8"],
                     help="int8 post-training quantization of the body "
                     "convolutions, calibrated on the first batch")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="split each batch over every card of the process "
+                    "(one model replica a card); --batch is rounded up to a "
+                    "multiple of their count")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
@@ -78,10 +95,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = cfglib.apply_overrides(cfglib.PRESETS[args.config](),
                                  args.overrides)
     model, _ = load_model(cfg, args.device, args.ckpt)
-    ev = Evaluator(cfg, model, device=args.device, quantize=args.quantize)
+    devices, batch = None, args.batch
+    if args.data_parallel:
+        devices = local_devices(args.device)
+        batch = -(-batch // len(devices)) * len(devices)
+    ev = Evaluator(cfg, model, device=args.device, quantize=args.quantize,
+                   devices=devices)
     result_dir = ev.evaluate_split(ValLoader(cfg, split=args.split),
                                    max_images=args.max_images,
-                                   batch_size=args.batch)
+                                   batch_size=batch)
     scores = None
     if not args.no_score:
         gt_dir = os.path.join(cfg.data_root, args.split, "annotations")

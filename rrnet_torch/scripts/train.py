@@ -1,7 +1,7 @@
 """Training entry point (port of `scripts/train.py`):
 
     python -m rrnet_torch.scripts.train --config rrnet [--steps N]
-        [--resume DIR] [--device cuda|cpu] [key=value ...]
+        [--resume DIR] [--device cuda|cpu] [--multihost] [key=value ...]
 
 e.g. `python -m rrnet_torch.scripts.train data_root=/data/VisDrone
 train.lr=1e-4`. Batches come from `data.loader.TrainLoader` through a
@@ -13,6 +13,20 @@ written to `{log_dir}/{log_prefix}/ckp-{step}` every
 the newest under a directory (or a `ckp-N` path) and goes on from its
 step, with the loader at the sample an uninterrupted run would draw
 next. One process on one card (or the CPU, for tests).
+
+`--multihost` trains data-parallel, one process a rank, as `torchrun`
+starts them:
+
+    torchrun --nproc-per-node N -m rrnet_torch.scripts.train --multihost ...
+
+Each rank joins the process group from the environment
+(`parallel.init_from_env`: NCCL on `cuda:LOCAL_RANK`, gloo with
+`--device cpu`), reads its own shard of the split (`TrainLoader
+(process_index=rank, process_count=world)`) at `train.batch_size` a rank,
+so the global batch is `train.batch_size` times the world size (the LR
+is not scaled, as in the JAX package), and steps through a `Trainer` on
+the group. Only rank 0 logs and writes checkpoints; `--resume` restores
+on every rank.
 """
 
 from __future__ import annotations
@@ -20,18 +34,23 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
+import torch.distributed as dist
+
 from rrnet_torch import config as cfglib
 from rrnet_torch.data.loader import DevicePrefetcher, TrainLoader
+from rrnet_torch.parallel import create_group, init_from_env
 from rrnet_torch.train import Trainer
 from rrnet_torch.utils import checkpoint as ckpt
 from rrnet_torch.utils.logger import Logger
 
 
-def main(argv: Optional[Sequence[str]] = None) -> str:
-    """Run the training loop; returns the path of the last checkpoint."""
+def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
+    """Run the training loop; returns the path of the last checkpoint
+    (None on ranks other than 0)."""
     ap = argparse.ArgumentParser(
         prog="python -m rrnet_torch.scripts.train",
-        description="Train an RRNet preset on one card.")
+        description="Train a preset on one card, or as one rank of a "
+        "data-parallel torchrun launch.")
     ap.add_argument("--config", default="rrnet", choices=sorted(cfglib.PRESETS))
     ap.add_argument("--steps", type=int, default=None,
                     help="override train.iter_num")
@@ -39,6 +58,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                     help="checkpoint dir or ckp-N path to resume from")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--multihost", action="store_true",
+                    help="one data-parallel rank of a torchrun launch")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = ap.parse_args(argv)
 
@@ -47,9 +68,23 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     if args.steps is not None:
         cfg = cfglib.set_by_path(cfg, "train.iter_num", args.steps)
 
-    logger = Logger(cfg)
+    group, device = None, args.device
+    if args.multihost:
+        device = init_from_env(args.device)
+        group = create_group(cfg.mesh, device)
+    try:
+        return _train(cfg, args, device, group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _train(cfg, args, device, group) -> Optional[str]:
+    rank, world = (group.rank, group.world_size) if group else (0, 1)
+    main_proc = rank == 0
+    logger = Logger(cfg, main_process=main_proc)
     logger.init_timer(cfg.train.iter_num)
-    trainer = Trainer(cfg, device=args.device)
+    trainer = Trainer(cfg, device=device, group=group)
     state = trainer.init_state()
     if args.resume:
         state = ckpt.restore_checkpoint(args.resume, state)
@@ -57,7 +92,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     start = int(state.step)
     batch_size = cfg.train.batch_size
     loader = DevicePrefetcher(
-        TrainLoader(cfg, batch_size, start_sample=start * batch_size),
+        TrainLoader(cfg, batch_size, process_index=rank, process_count=world,
+                    start_sample=start * batch_size),
         device=trainer.device)
 
     path = None
@@ -66,6 +102,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         for step in range(start, cfg.train.iter_num):
             batch = loader.get_batch()
             state, metrics = trainer.train_step(state, batch)
+            if not main_proc:
+                continue
             running.append(metrics)
             if step % cfg.train.print_interval == \
                     cfg.train.print_interval - 1:

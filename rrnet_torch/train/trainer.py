@@ -24,9 +24,20 @@ reg. Then the
 gradients, then the fused Adam with the exact skip: a non-finite total
 leaves params, moments, counts, step and BN running statistics as they
 were (the reference skips a step on CUDA OOM, rrnet_operator.py:120-126),
-and non-finite gradients are zeroed first. One card: the JAX step's
-`shard_map` over a one-device mesh is the identity and its `pmean`s are
-no-ops. Multi-card DDP with SyncBN is not ported yet.
+and non-finite gradients are zeroed first.
+
+Data parallelism (the JAX step's `shard_map` over the `data` axis):
+`Trainer(cfg, device, group=parallel.DataGroup)` runs one rank of a
+world of W, each rank on its own share of the global batch. The model's
+batch norms are SyncBN over the group where `model.sync_bn` is set (RRNet
+and `rrnet_hrnetv2_attention`; CenterNet and RetinaNet keep each rank's
+own statistics, as each JAX device keeps its own shard's), the flat f32
+gradient is averaged over the ranks in one collective, the skip flag is
+`mean(isfinite(total)) >= 1` over the ranks (one rank's non-finite loss
+skips every rank), and the logged metrics are averaged as one stacked
+tensor. Params, moments, counts and step stay bitwise equal on every
+rank; rank 0's state is the one to save. With no group, or a world of
+one, no collective is issued and the step is the single-card step.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from rrnet_torch.config import Config
 from rrnet_torch.data.yuv420 import unpack_yuv420_device
 from rrnet_torch.models import build_model
 from rrnet_torch.models.anchors import model_anchors
+from rrnet_torch.parallel import DataGroup, all_mean, all_mean_, replicate
 from rrnet_torch.train import criterions
 from rrnet_torch.train.state import TrainState, create_train_state, views
 from rrnet_torch.utils.device import resolve_device
@@ -48,13 +60,17 @@ from rrnet_torch.utils.device import resolve_device
 
 class Trainer:
     """Builds the model (in train mode) and runs the train step on
-    `device` ("cuda" unless the caller asks for the CPU)."""
+    `device` ("cuda" unless the caller asks for the CPU), as one rank of
+    the data-parallel `group` where one is given."""
 
     def __init__(self, cfg: Config,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 group: Optional[DataGroup] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = build_model(cfg, device=self.device).train()
+        self.group = group
+        self.model = build_model(cfg, device=self.device,
+                                 group=group).train()
         ch, cw = cfg.train.crop_size
         s = cfg.train.scale_factor
         self.feat_shape = (ch // s, cw // s)
@@ -73,10 +89,12 @@ class Trainer:
                    ) -> TrainState:
         """Weights drawn on the CPU from `generator` (default: seeded with
         cfg.seed, the weights the model was built with), zero moments and
-        counts."""
+        counts; with a group, rank 0's state broadcast to every rank."""
         src = self.model if generator is None else build_model(
             self.cfg, device="cpu", generator=generator)
-        return create_train_state(self.cfg, src, device=self.device)
+        state = create_train_state(self.cfg, src, device=self.device)
+        replicate(state.tensors().values(), self.group)
+        return state
 
     # ------------------------------------------------------------------
     def _to_device(self, a) -> torch.Tensor:
@@ -127,7 +145,7 @@ class Trainer:
 
     def _value_grads(self, state: TrainState, batch):
         """Forward on the state (BN statistics updated in place), losses
-        and the flat f32 gradient."""
+        and the flat f32 gradient, averaged over the group's ranks."""
         images = self.normalise(batch["images"])
         annos = self._to_device(batch["annos"]).float()
         valid = self._to_device(batch["valid"]).bool()
@@ -138,7 +156,8 @@ class Trainer:
         total, ld = self._losses(outs, annos, valid, state.step)
         grads = torch.autograd.grad(total, list(leaves.values()),
                                     allow_unused=True, materialize_grads=True)
-        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        flat = all_mean_(torch.cat([g.reshape(-1).float() for g in grads]),
+                         self.group)
         return total.detach(), flat, {k: v.detach() for k, v in ld.items()}
 
     # ------------------------------------------------------------------
@@ -149,8 +168,12 @@ class Trainer:
         skipped; 0-dim f32 tensors on the device."""
         old_stats = state.flat_stats.clone()
         total, grads, ld = self._value_grads(state, batch)
-        good = torch.isfinite(total)
-        metrics = dict(ld, total=total,
+        # one rank's non-finite loss skips the step on every rank
+        good = all_mean(torch.isfinite(total).to(torch.float32),
+                        self.group) >= 1.0
+        names = [*ld, "total"]
+        means = all_mean(torch.stack([*ld.values(), total]), self.group)
+        metrics = dict(zip(names, means.unbind(0)),
                        skipped=1.0 - good.to(torch.float32))
         # poisoned grads must not give NaN * 0 in the fused update
         grads = torch.where(torch.isfinite(grads), grads, 0.0)
@@ -159,10 +182,10 @@ class Trainer:
 
     def loss_and_grads(self, state: TrainState, batch
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The total loss and the gradients ({parameter name: tensor})
-        without applying the update; the state, its BN statistics
-        included, is left as it was."""
+        """The total loss and the gradients ({parameter name: tensor}),
+        both averaged over the group's ranks, without applying the update;
+        the state, its BN statistics included, is left as it was."""
         old_stats = state.flat_stats.clone()
         total, grads, _ = self._value_grads(state, batch)
         state.flat_stats.copy_(old_stats)
-        return total, views(grads, state.layout.params)
+        return all_mean(total, self.group), views(grads, state.layout.params)

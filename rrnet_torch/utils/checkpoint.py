@@ -2,14 +2,16 @@
 uses orbax): the full state through `torch.save`, params, BN statistics,
 both Adam moments, both counts and the step, so a run resumes where it
 stopped. Step-indexed directories `ckp-{step}` under a log directory,
-the oldest removed beyond `keep`.
+the oldest removed beyond `keep`. `save_params_only` / `load_params_only`
+write and read a bare {name: tensor} mapping (an inference export, the
+reference's state_dict).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import List, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 
@@ -83,3 +85,20 @@ def _cleanup(log_dir: str, keep: int) -> None:
     steps = available_steps(log_dir)
     for s in steps[:-keep] if keep > 0 else []:
         shutil.rmtree(os.path.join(log_dir, f"ckp-{s}"), ignore_errors=True)
+
+
+def save_params_only(path: str, params: Mapping[str, torch.Tensor]) -> str:
+    """Write {name: tensor} (e.g. a model's state_dict, or
+    `TrainState.state_dict()`) to the file `path`, replacing it whole.
+    Returns the path."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({k: v.detach().cpu() for k, v in params.items()}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_params_only(path: str) -> Dict[str, torch.Tensor]:
+    return torch.load(os.path.abspath(path), map_location="cpu",
+                      weights_only=True)

@@ -45,6 +45,7 @@ from tests.test_torch_eval_protocol import (assert_rows_match, frames,
                                             predict_both)
 from tests.test_torch_layers import randomize_bn
 from tests.test_torch_train import jax_payload, random_annos
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = {"model.backbone": "tiny_hourglass", "model.dtype": "float32"}
 TRAIN = {**TINY, "train.crop_size": (64, 64), "train.max_objects": 16}

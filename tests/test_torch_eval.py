@@ -34,6 +34,7 @@ from rrnet_torch.evallib import writer as TW
 from rrnet_torch.evallib.infer import Evaluator as TEvaluator
 from rrnet_torch.scripts import synth_gate, train as train_cli
 from tests.test_torch_rrnet import configs, tiny_pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 EVAL = {"val.scales": (1.0,), "val.flip_tta": False}
 

@@ -54,6 +54,7 @@ from rrnet_torch.scripts.eval import load_model
 from rrnet_torch.utils import native
 from tests.test_torch_eval import TINY_TRAIN, _split_dirs
 from tests.test_torch_rrnet import REPO, configs, tiny_pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIX = (1.0, 1.1, 1.2, 1.3, 1.4, 1.5)
 BOX_TOL, SCORE_TOL = 1e-3, 1e-5

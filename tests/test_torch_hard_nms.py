@@ -186,3 +186,18 @@ def test_cuda_kernel_does_not_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(keep, thn.hard_nms_reference(args[0], args[1], 0.7,
                                                     None, args[2]))
+
+
+@pytest.mark.cuda
+def test_cuda_batched_nms_launches_the_kernel(cuda_device):
+    """`ops.nms.batched_nms` on the card goes through the kernel (one
+    launch) and keeps what it keeps on the CPU."""
+    from rrnet_torch.ops import nms as tnms
+    b, s, c, v = dets(4, 1500, seed=11, span=352.0, n_cls=10)
+    cpu = tnms.batched_nms(t(b), t(s), t(c), 0.7, valid=t(v))
+    before = thn.launches
+    got = tnms.batched_nms(*(t(a).to(cuda_device) for a in (b, s, c)), 0.7,
+                           valid=t(v).to(cuda_device))
+    torch.cuda.synchronize()
+    assert thn.launches == before + 1
+    assert torch.equal(got.cpu(), cpu)

@@ -53,6 +53,7 @@ from rrnet_torch.utils.from_flax import (check_state_shapes,
                                          numpy_state_from_flax)
 from tests.test_torch_eval_protocol import assert_rows_match
 from tests.test_torch_train import close
+from torch_threads import one_torch_thread  # noqa: F401
 
 PRESET = "rrnet_hrnetv2_attention"
 SMALL = dict(base_channels=8, stage_modules=(1, 1, 1))
@@ -100,10 +101,9 @@ def shape_heads(params):
 
 @pytest.mark.parametrize("name", sorted(jcfg.PRESETS))
 def test_presets_equal_jax_field_for_field(name):
-    """Every JAX preset has a port preset equal field for field (the
-    JAX `mesh` block, a device-mesh description, has no counterpart)."""
+    """Every JAX preset has a port preset equal field for field, the
+    `mesh` block included."""
     jd = dataclasses.asdict(jcfg.PRESETS[name]())
-    jd.pop("mesh")
     assert dataclasses.asdict(tcfg.PRESETS[name]()) == jd
     assert sorted(tcfg.PRESETS) == sorted(jcfg.PRESETS)
 

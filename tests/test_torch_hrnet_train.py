@@ -47,6 +47,7 @@ from tests.test_torch_eval_protocol import (assert_rows_match, frames,
 from tests.test_torch_hrnet import (PRESET, SMALL, TINY, configs,
                                     drawn_variables, shape_heads)
 from tests.test_torch_train import close, jax_payload, random_annos
+from torch_threads import one_torch_thread  # noqa: F401
 
 TRAIN = {**TINY, "train.crop_size": (64, 64), "train.max_objects": 16,
          "train.stage2_warmup_steps": 0}

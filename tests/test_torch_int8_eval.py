@@ -37,6 +37,7 @@ from rrnet_torch.utils.from_flax import (quant_scales_from_flax,
                                          quant_scales_to_flax)
 from tests.test_torch_eval_protocol import frames
 from tests.test_torch_rrnet import configs, tiny_pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def matched(got, want, box_tol, score_tol):

@@ -46,6 +46,7 @@ from tests.test_torch_eval_protocol import (assert_rows_match, frames,
 from tests.test_torch_layers import randomize_bn
 from tests.test_torch_train import (as_float64, close, jax_payload,
                                     random_annos)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = {"model.backbone": "resnet10", "model.dtype": "float32"}
 TRAIN = {**TINY, "train.crop_size": (64, 64), "train.max_objects": 16}

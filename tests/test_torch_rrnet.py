@@ -204,7 +204,8 @@ assert not bad, bad
                 "rrnet_torch.models.backbones.resnet",
                 "rrnet_torch.models.backbones.hrnet",
                 "rrnet_torch.models.backbones.hrnetv2",
-                "rrnet_torch.models.backbones.shufflenet"):
+                "rrnet_torch.models.backbones.shufflenet",
+                "rrnet_torch.parallel", "rrnet_torch.parallel.mesh"):
         assert mod in res.stdout, mod
 
 

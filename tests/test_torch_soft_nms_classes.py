@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from rrnet_torch.ops import soft_nms as tsn
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def dets(b, k, seed, span=100.0, n_cls=4, p_valid=0.85):

@@ -41,6 +41,7 @@ from rrnet_torch.utils import checkpoint as tckpt
 from rrnet_torch.utils.from_flax import (load_flax_train_state,
                                          load_flax_variables,
                                          numpy_state_from_flax)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = {"model.backbone": "tiny_hourglass", "model.topk": 32,
         "model.stage2_rois": 8, "model.dtype": "float32",
