@@ -25,11 +25,15 @@ Phases (any failure exits non-zero before the result line):
      (B=4, K=1000, class-agnostic, thr 0.3, +1 extents, valid = score >
      0.1, decoded anchors crowded in one window). `--before DIR` builds
      another version of the sources that DIR holds (the DCN trio,
-     `soft_nms_classes.cu`, `soft_nms.cu`) and times it beside this
-     checkout's, in turns ("before/after" lines);
+     `soft_nms_classes.cu`, `soft_nms.cu`, `int8_conv.cu` with 5cd1773's
+     C interface) and times it beside this checkout's, in turns
+     ("before/after" lines; the int8 conv's device ms at every shape of
+     the int8 check, and in phase 12 a served int8 forward with the other
+     version's conv: p50 and the convs' device ms);
   4. small-input reference: a tiny RRNet (hard NMS and soft-NMS), a tiny
-     RRNet train step (soft-NMS; hard NMS with the card's stage 2 fed the
-     CPU's ROIs bit for bit) and trires50deform at 64x64, all f32, on the
+     RRNet train step (soft-NMS, its Adam update held to the CPU's in
+     units of lr; hard NMS with the card's stage 2 fed the CPU's ROIs bit
+     for bit) and trires50deform at 64x64, all f32, on the
      card against the same models on the CPU (the path the CPU tests hold
      to the JAX package);
   5. main path: `rrnet_torch.serving.Predictor` on the flagship `rrnet`
@@ -117,7 +121,10 @@ Phases (any failure exits non-zero before the result line):
      hard NMS), the detection agreement with bf16; `evaluate_split` at
      the six-scale protocol over 8 frames at batch 4, bf16 then int8
      (images/s, peak memory, launches); the centernet and retinanet
-     presets' calibrated counts at full width (159 and 57);
+     presets' calibrated counts at full width (159 and 57); one int8
+     forward of each of the three presets on a 765x1360 frame with a hook
+     on `int8_conv2d`: the first call of each distinct geometry held
+     bit-equal to the plain version;
  13. micro-batching: a `MicroBatcher` at its defaults over the bf16
      `rrnet` Predictor: 32 requests from 4 client threads at once and a
      closed loop of 16 beside single `predict` calls (requests/s, p50 /
@@ -1258,15 +1265,26 @@ def check_small_train(torch):
     ROI 9 of image 1) lies 5.8e-6 above 0, so a shift of that ROI by a
     relative 1e-6 flips the ReLU, on the CPU alone too, and moves the
     head's conv1 gradient by 0.9%. So soft-NMS, whose ROIs keep off that
-    kink, is the one held with the card's own ROIs."""
+    kink, is the one held with the card's own ROIs. Then one
+    `train_step` on each device from the same state: losses within 1e-4,
+    and the updated parameters held to the CPU's in units of lr
+    (`small_train_update_gap`). The hooks that read the first forward's
+    outputs return None and are removed after it: a forward hook that
+    returns a value replaces the module's output."""
     cpu, gpu, state, batch = small_train_setup(torch, "soft_nms")
     outs = {}
-    for name, tr in (("cpu", cpu), ("cuda", gpu)):
-        tr.model.register_forward_hook(
-            lambda m, a, o, name=name: outs.setdefault(name, o))
+
+    def capture(name):
+        def hook(module, args, out):
+            outs[name] = out          # returns None: the output stays
+        return hook
+    hooks = [tr.model.register_forward_hook(capture(name))
+             for name, tr in (("cpu", cpu), ("cuda", gpu))]
     gstate = state.to("cuda")
     tot_c, g_c = cpu.loss_and_grads(state, batch)
     tot_g, g_g = gpu.loss_and_grads(gstate, batch)
+    for h in hooks:
+        h.remove()
     a, b = outs["cpu"], outs["cuda"]
     for name in ("roi_valid", "roi_classes"):
         if not torch.equal(getattr(a, name), getattr(b, name).cpu()):
@@ -1278,6 +1296,8 @@ def check_small_train(torch):
     if not errs[0][0] <= 1e-3:
         raise AssertionError(f"tiny train step gradients cuda vs cpu: "
                              f"{errs[:3]} > 1e-3")
+    p0 = {k: v.clone() for k, v in state.params().items()}
+    lr = float(state.schedule(state.sched_count))
     _, m_c = cpu.train_step(state, batch)
     _, m_g = gpu.train_step(gstate, batch)
     worst = max(abs(float(m_g[k]) - float(m_c[k]))
@@ -1285,12 +1305,84 @@ def check_small_train(torch):
     if not worst <= 1e-4 or float(m_c["s2"]) <= 0:
         raise AssertionError(f"tiny train step losses cuda vs cpu: {m_c} / "
                              f"{m_g}")
+    upd = small_train_update_gap(torch, p0, state, gstate, g_c, g_g, lr)
     print(f"  tiny RRNet train step f32 (soft-NMS) cuda == cpu: "
           f"{int(a.roi_valid.sum())} ROIs equal; losses within {worst:.3g} "
           f"(s2 {float(m_c['s2']):.4f}); {len(errs)} gradients within "
           f"{errs[0][0]:.3g} of their largest magnitude (worst "
-          f"{errs[0][1]})", flush=True)
+          f"{errs[0][1]}); the update (lr {lr:.3g}): {upd['moved']:.4f} of "
+          f"{upd['n']} params moved by >= lr / 2 on the CPU, "
+          f"{upd['n'] - upd['loose']} within {UPDATE_TIGHT_LR:g} lr of the "
+          f"CPU's step, {upd['loose']} ({upd['loose'] / upd['n']:.3g}) "
+          f"further, up to {upd['worst']:.3g} lr, each within what its "
+          f"gradient's gap allows through Adam's eps ({upd['near_zero']} "
+          "elements with |g| within 2x the gap of 0)", flush=True)
     explain_small_train_gap(torch)
+
+
+# a tiny train step's parameter update, card against CPU, in units of lr
+UPDATE_TIGHT_LR = 1e-3
+
+
+def small_train_update_gap(torch, p0, state, gstate, g_c, g_g, lr):
+    """The first Adam step of the tiny train step on the card against the
+    CPU's, each parameter's step (param' - param) in units of lr.
+
+    Adam's first step is lr * g / (|g| + eps) elementwise (mu_hat = g,
+    sqrt(nu_hat) = |g|), about lr * sign(g): it divides out the
+    gradient's size, so the step's slope in g is eps / (|g| + eps)^2 and a
+    card/CPU gradient gap d moves it by at most d * eps / (|g| - d + eps)^2
+    lr where |g| > d (nothing where |g| >> eps, up to ~d / eps near
+    eps), and by up to 2 lr, a flip of sign, where the gradient lies
+    within d of 0. d is twice the tensor's measured max |g_g - g_c| (the
+    step's `loss_and_grads`; twice, because the card's step recomputes its
+    gradient and its scatter-adds run by atomics in another order). So
+    every element must step within UPDATE_TIGHT_LR lr of the CPU plus that
+    bound, and most within UPDATE_TIGHT_LR alone; a wrong rate or bias
+    correction would move nearly every element by a good part of lr. And
+    the update must really move: at least half of the parameters by
+    lr / 2 on the CPU (with zero gradients nothing moves). Raises on a
+    breach; returns the counts."""
+    pc, pg = state.params(), gstate.params()
+    n = loose = near_zero = moved = 0
+    worst = 0.0
+    for k, w0 in p0.items():
+        step_c = (pc[k] - w0) / lr
+        step_g = (pg[k].cpu() - w0) / lr
+        gap = 2.0 * float((g_g[k].cpu() - g_c[k]).abs().max())
+        gabs = g_c[k].abs()
+        near = gabs <= gap
+        slope = gap * state.eps / ((gabs - gap).clamp(min=0.0)
+                                   + state.eps) ** 2
+        allowed = torch.where(near, 2.0, slope.clamp(max=2.0)) \
+            + UPDATE_TIGHT_LR
+        d = (step_g - step_c).abs()
+        if bool((d > allowed).any()):
+            i = int(torch.argmax(d - allowed))
+            raise AssertionError(
+                f"tiny train step update of {k}, cuda vs cpu: "
+                f"{int((d > allowed).sum())} elements step further apart "
+                f"than the gradient gap {gap / 2:.3g} allows; worst "
+                f"{float(d.flatten()[i]):.3g} lr at |g| "
+                f"{float(gabs.flatten()[i]):.3g} (allowed "
+                f"{float(allowed.flatten()[i]):.3g})")
+        n += d.numel()
+        loose += int((d > UPDATE_TIGHT_LR).sum())
+        near_zero += int(near.sum())
+        moved += int((step_c.abs() >= 0.5).sum())
+        worst = max(worst, float(d.max()))
+    if not moved >= 0.5 * n:
+        raise AssertionError(f"tiny train step: only {moved} of {n} params "
+                             "moved by lr / 2 on the CPU: no update")
+    if not loose <= 0.01 * n:
+        raise AssertionError(f"tiny train step: {loose} of {n} params step "
+                             f"more than {UPDATE_TIGHT_LR:g} lr from the "
+                             "CPU's (most must not)")
+    if not (int(state.count) == int(gstate.count) == 1):
+        raise AssertionError(f"tiny train step: Adam counts {int(state.count)}"
+                             f" / {int(gstate.count)} after one step")
+    return {"n": n, "loose": loose, "near_zero": near_zero,
+            "moved": moved / n, "worst": worst}
 
 
 def small_train_setup(torch, nms_type, group=None, batch_seed=4):
@@ -3281,7 +3373,67 @@ INT8_OPS_PER_S = 1979e12        # tensor cores, int8 dense
 QUANTIZE_OPS_PER_VALUE = 4
 
 
-def check_int8_conv(torch, rng, card):
+def before_int8(torch, src):
+    """`int8_conv2d(xq, pw, s_in, bias, stride, pad4, out_dtype)` on the
+    int8 convolution built from the int8_conv.cu in `src` (the earlier
+    design, `git show 5cd1773:rrnet_torch/csrc/int8_conv.cu`: mma.sync
+    with split-K decided in C) into src/build, with this checkout's
+    checks, scale, bias and allocations around the launch, so that the
+    two versions are timed on equal terms. It counts no launch."""
+    import ctypes
+    from pathlib import Path
+    from rrnet_torch.ops import int8_conv as ic
+    from rrnet_torch.utils import native
+    src = Path(src)
+    lib = ctypes.CDLL(str(native.build_all(("int8_conv",), src,
+                                           src / "build")["int8_conv"]))
+    conv = lib.rrnet_int8_conv
+    conv.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [
+        ctypes.c_void_p]
+    conv.restype = ctypes.c_int
+    splits = lib.rrnet_int8_conv_splits
+    splits.argtypes = [ctypes.c_int] * 5
+    splits.restype = ctypes.c_int
+
+    def run(xq, pw, s_in, bias, stride, pad4, out_dtype):
+        sh, sw, ho, wo = ic.conv_geometry(xq, pw, stride, pad4)
+        cout, _, kh, kw = pw.wq.shape
+        n, h, wd, cp = xq.shape
+        kp = pw.rows.shape[1]
+        i32 = out_dtype == torch.int32
+        scale = None if i32 else ic.dequant_scale(pw.s_w, s_in)
+        if bias is not None and not i32:
+            bias = bias.to(out_dtype).contiguous()
+        else:
+            bias = None
+        split = splits(n, ho, wo, cout, kp) == 1
+        shape = (n, cout, ho, wo)
+        out = (torch.zeros if split and i32 else torch.empty)(
+            shape, dtype=out_dtype, device=xq.device)
+        acc = (torch.zeros(shape, dtype=torch.int32, device=xq.device)
+               if split and not i32 else None)
+        err = conv(xq.data_ptr(), pw.rows.data_ptr(),
+                   None if scale is None else scale.data_ptr(),
+                   None if bias is None else bias.data_ptr(),
+                   out.data_ptr(), None if acc is None else acc.data_ptr(),
+                   {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}[
+                       out_dtype], n, h, wd, cp, cout, kh, kw, sh, sw,
+                   pad4[0], pad4[2], ho, wo, kp,
+                   torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{src}: int8 conv launch failed: {err}")
+        return out
+    return run
+
+
+def int8_device_ms(torch, fn, reps=5):
+    """Device ms a call of `fn` spends in int8 conv kernels (the split-K
+    epilogue included), by the profiler."""
+    return sum(v for key, v in device_split(torch, fn, reps).items()
+               if "int8_conv" in key or "dequant_kernel" in key)
+
+
+def check_int8_conv(torch, rng, card, before=None):
     """The int8 kernels against their plain versions on the card at the
     main path's shapes (bf16 in, bf16 out; batch 1 and 4 of the 768x1408
     bucket, and stage 2 on 4x512 ROIs): quantize_pack's NHWC int8, the
@@ -3289,8 +3441,10 @@ def check_int8_conv(torch, rng, card):
     with a bias, once) bit-equal; each timed beside its bound, its plain
     version, cuDNN's bf16 convolution of the same shape (the conv the
     int8 path replaces) and, for 1x1 stride-1 shapes, `torch._int_mm` on
-    the NHWC matrix (a yardstick only: the port never calls it). Returns
-    the kernels' two lines."""
+    the NHWC matrix (a yardstick only: the port never calls it). With
+    `before` (`before_int8`'s launcher of another version) each shape's
+    device ms of both versions, in turns (before, after, after, before),
+    and that version bit-equal too. Returns the kernels' two lines."""
     import torch.nn.functional as F
     from rrnet_torch.ops import int8_conv as ic
     dev = torch.device("cuda")
@@ -3335,6 +3489,23 @@ def check_int8_conv(torch, rng, card):
                 f"largest gap {err:.3g}")
         ms = cuda_ms(lambda: ic.int8_conv2d(xq, pw, s_in, bias, stride, pad4,
                                             torch.bfloat16), reps=20)
+        turns = None
+        if before is not None:
+            if not torch.equal(before(xq, pw, s_in, bias, stride, pad4,
+                                      torch.bfloat16), y):
+                raise AssertionError(f"int8 {label} batch {n}: the --before "
+                                     "build differs from this one")
+            fns = {"before": lambda: before(xq, pw, s_in, bias, stride, pad4,
+                                            torch.bfloat16),
+                   "after": lambda: ic.int8_conv2d(xq, pw, s_in, bias, stride,
+                                                   pad4, torch.bfloat16)}
+            turns = {"before": [], "after": []}
+            for which in ("before", "after", "after", "before"):
+                turns[which].append(int8_device_ms(torch, fns[which]))
+            print(f"  int8 before/after {label} batch {n} on {card}: device "
+                  f"ms before {turns['before'][0]:.4f}, "
+                  f"{turns['before'][1]:.4f}; after {turns['after'][0]:.4f}, "
+                  f"{turns['after'][1]:.4f}", flush=True)
         pack_ms = cuda_ms(lambda: ic.quantize_pack(x, absmax), reps=20)
         plain_ms = cuda_ms(lambda: ic.int8_conv2d_plain(
             xq_ref, pw.wq, pw.s_w, s_in, bias, stride, pad4,
@@ -3385,7 +3556,8 @@ def check_int8_conv(torch, rng, card):
                "pack_ms": pack_ms, "pack_plain_ms": pack_plain_ms,
                "pack_bound_ms": max(p_bound_bytes, p_bound_ops),
                "pack_bound_by": ("bytes" if p_bound_bytes >= p_bound_ops
-                                 else "operations")}
+                                 else "operations"),
+               "before_after_device_ms": turns}
         rows.append(row)
         print(f"  int8 {label} batch {n} ({'x'.join(map(str, row['in']))} "
               f"-> {'x'.join(map(str, row['out']))}) on {card}: int8 NHWC, "
@@ -3416,6 +3588,11 @@ def check_int8_conv(torch, rng, card):
           f"quantize_pack {total['pack_ms']:.4f} (device "
           f"{total['pack_device_ms']:.4f})", flush=True)
     conv = {"name": "int8_conv2d", "route": "cuda",
+            "design": "wgmma m64n128k32 s8, both operands from shared "
+                      "memory; weights by TMA (2-D tiled, 128-byte "
+                      "swizzle), activations by a cp.async producer "
+                      "warpgroup; warp-specialised persistent grid, "
+                      "4-stage mbarrier ring; split-K by int32 atomics",
             "source": "rrnet_torch/csrc/int8_conv.cu",
             "replaces": "rrnet_tpu/models/layers.py:166 (not a TPU kernel: "
                         "XLA's int8 conv_general_dilated)",
@@ -3533,7 +3710,7 @@ def serve_times(pred, imgs, passes=2):
     return ms, outs
 
 
-def run_int8_path(torch, card):
+def run_int8_path(torch, card, before=None):
     """Phase "int8 path": the `rrnet` preset at full width (bf16, seeded
     weights) served through `Predictor(quantize="int8")` beside the bf16
     `Predictor` on the same model: warmup refused before calibration, the
@@ -3589,6 +3766,34 @@ def run_int8_path(torch, card):
         check_detections(d, cfg.model.stage2_rois, cfg.num_classes)
     agree, compared = detection_agreement(bf_out[:8], i8_out[:8])
     per_forward = int8_forward_split(torch, i8, imgs[0])
+    if before is not None:
+        # the same requests with the other version's conv (`before_int8`'s
+        # launcher, which counts no launch) in turns
+        from rrnet_torch.ops import int8_conv as ic
+        kernel_conv = ic.int8_conv2d
+
+        def other(xq, w, s_in, bias=None, stride=1, pad4=(0, 0, 0, 0),
+                  out_dtype=torch.bfloat16, **kw):
+            return before(xq, w, s_in, bias, stride, pad4, out_dtype)
+        turns = {"before": [], "after": []}
+        for which in ("before", "after", "after", "before"):
+            ic.int8_conv2d = other if which == "before" else kernel_conv
+            try:
+                ms = serve_times(i8, imgs, passes=2)[0]
+                split = int8_forward_split(torch, i8, imgs[0])
+            finally:
+                ic.int8_conv2d = kernel_conv
+            turns[which].append({"p50_ms": float(np.percentile(ms, 50)),
+                                 "conv_ms": split["conv_ms"],
+                                 "all_kernels_ms": split["all_kernels_ms"]})
+        entry["before_after_forward"] = turns
+        print(f"  int8 before/after forward on {card} (16 requests a turn; "
+              "before, after, after, before): " + "; ".join(
+                  f"{w} p50 {t['p50_ms']:.2f} ms, int8 convs "
+                  f"{t['conv_ms']:.4f} ms, all kernels "
+                  f"{t['all_kernels_ms']:.4f}"
+                  for w in ("before", "after") for t in turns[w]),
+              flush=True)
     entry["serve"] = {
         "calibrated_convs": len(scales), "calibrate_s": calib_s,
         "bf16_p50_ms": float(np.percentile(bf_ms, 50)),
@@ -3671,7 +3876,73 @@ def run_int8_path(torch, card):
             raise AssertionError(f"{name}: {n_conv} calibrated convs, the "
                                  f"JAX package {jax_count}")
         del e
+    entry["geometries_checked"] = check_int8_geometries(torch, card)
     return entry
+
+
+def check_int8_geometries(torch, card):
+    """One int8 forward of each of the `rrnet`, `centernet` and
+    `retinanet` presets at full width (bf16, seeded weights, calibrated on
+    one demo frame, scale 1, no flip) on a 765x1360 demo frame, with a hook
+    on `int8_conv2d`: the first call of each distinct geometry (input
+    shape, weight shape, stride, per-side padding, output dtype, bias or
+    not) is redone by the plain version on that call's own inputs and must
+    be bit-equal. Returns {preset: geometries checked}."""
+    import dataclasses
+    from rrnet_torch import config as cfglib
+    from rrnet_torch.evallib.infer import Evaluator
+    from rrnet_torch.models import build_model
+    from rrnet_torch.ops import int8_conv as ic
+    frame = demo_frames(1)[0]["image"]
+    orig = ic.int8_conv2d
+    seen = {}
+    differ = []
+
+    def hooked(xq, w, s_in, bias=None, stride=1, pad4=(0, 0, 0, 0),
+               out_dtype=torch.bfloat16, **kw):
+        out = orig(xq, w, s_in, bias, stride, pad4, out_dtype, **kw)
+        key = (tuple(xq.shape), tuple(w.wq.shape), ic._pair(stride),
+               tuple(pad4), out_dtype, bias is not None)
+        if key not in seen:
+            seen[key] = preset
+            if not torch.equal(out, ic.int8_conv2d_plain(
+                    xq, w.wq, w.s_w, s_in, bias, stride, pad4, out_dtype)):
+                differ.append(key)
+        return out
+
+    counts = {}
+    ic.int8_conv2d = hooked
+    try:
+        for preset in ("rrnet", "centernet", "retinanet"):
+            c = cfglib.PRESETS[preset]()
+            c = c.replace(val=dataclasses.replace(c.val, scales=(1.0,),
+                                                  flip_tta=False))
+            e = Evaluator(c, build_model(
+                c, device="cuda",
+                generator=torch.Generator().manual_seed(c.seed)),
+                device="cuda", quantize="int8")
+            e.calibrate([frame])
+            before = len(seen)
+            dets = e.predict(frame)
+            if dets.ndim != 2 or dets.shape[1] != 6 or not np.isfinite(
+                    dets).all():
+                raise AssertionError(f"{preset} int8: detections "
+                                     f"{dets.shape}, finite "
+                                     f"{np.isfinite(dets).all()}")
+            counts[preset] = len(seen) - before
+            del e
+    finally:
+        ic.int8_conv2d = orig
+    if differ:
+        raise AssertionError(f"int8_conv2d differs from its plain version "
+                             f"at {len(differ)} of {len(seen)} geometries: "
+                             f"{differ[:4]}")
+    print(f"  int8 geometries on {card}: one int8 forward each of rrnet, "
+          f"centernet and retinanet at full width on a 765x1360 frame; "
+          f"{len(seen)} distinct conv geometries ({counts} new in turn), "
+          "each call bit-equal to the plain version on its own inputs",
+          flush=True)
+    return counts
 
 
 def run_microbatching(torch, card):
@@ -4310,9 +4581,10 @@ def main(argv=None) -> int:
     ap.add_argument("--before", metavar="DIR", help="a directory holding "
                     "another version of some of rrnet_torch/csrc's sources "
                     "(the DCN trio dcn_fwd.cu, dcn_bwd.cu, dcn_common.cuh; "
-                    "soft_nms_classes.cu; soft_nms.cu), e.g. the parent "
-                    "commit's; its kernels are built into DIR/build and "
-                    "timed beside this checkout's, in turns")
+                    "soft_nms_classes.cu; soft_nms.cu; int8_conv.cu of "
+                    "5cd1773's interface), e.g. the parent commit's; its "
+                    "kernels are built into DIR/build and timed beside this "
+                    "checkout's, in turns")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4343,7 +4615,7 @@ def main(argv=None) -> int:
         for line in native.build_log(name):
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    before_pair = before_classes = before_soft = None
+    before_pair = before_classes = before_soft = before_i8 = None
     if args.before:
         src = Path(args.before)
         t0 = time.perf_counter()
@@ -4354,15 +4626,19 @@ def main(argv=None) -> int:
             before_classes = before_soft_nms_classes(torch, src)
         if (src / "soft_nms.cu").exists():
             before_soft = before_soft_nms(torch, src)
+        if (src / "int8_conv.cu").exists():
+            before_i8 = before_int8(torch, src)
         if before_pair is None and before_classes is None and (
-                before_soft is None):
+                before_soft is None) and before_i8 is None:
             raise SystemExit(f"--before {src}: no DCN trio, no "
-                             "soft_nms_classes.cu and no soft_nms.cu there")
+                             "soft_nms_classes.cu, no soft_nms.cu and no "
+                             "int8_conv.cu there")
         print(f"  the kernels of {src} ("
               + ", ".join(n for n, b in (("DCN", before_pair),
                                          ("soft_nms_classes",
                                           before_classes),
-                                         ("soft_nms", before_soft)) if b)
+                                         ("soft_nms", before_soft),
+                                         ("int8_conv", before_i8)) if b)
               + f") built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("kernels vs plain")
@@ -4373,7 +4649,7 @@ def main(argv=None) -> int:
     classes = check_soft_nms_classes(torch, sn, rng, card, before_classes)
     hard = check_hard_nms(torch, hn, rng, card)
     dcn_fwd, dcn_bwd = check_dcn(torch, rng, card, before_pair)
-    int8_conv, int8_pack = check_int8_conv(torch, rng, card)
+    int8_conv, int8_pack = check_int8_conv(torch, rng, card, before_i8)
 
     phase("small-input reference")
     check_small_reference(torch)
@@ -4428,7 +4704,7 @@ def main(argv=None) -> int:
 
     phase("int8 path")
     t0 = time.perf_counter()
-    int8 = run_int8_path(torch, card)
+    int8 = run_int8_path(torch, card, before_i8)
     int8["seconds"] = time.perf_counter() - t0
     print(f"  phase took {int8['seconds']:.1f} s", flush=True)
     launches = int8["serve"]["launches"]

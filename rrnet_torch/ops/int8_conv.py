@@ -24,7 +24,12 @@ a zero tail to a multiple of 64 (the kernel's rows), and s_w.
 the CPU and launch the kernel for tensors on a CUDA device, where they
 raise instead of falling back. `pack_launches` and `launches` count the
 two kernels' launches in this process. The kernel takes groups 1,
-dilation 1, any kernel size and stride and per-side padding.
+dilation 1, any kernel size and stride and per-side padding
+(`conv_geometry` checks a call against that contract). It walks output
+tiles of TILE_M pixels x TILE_N channels in K steps of STEP_K bytes on a
+persistent grid of one block an SM; `conv_schedule` decides how many
+steps a unit of work takes (K is split where the tiles alone would leave
+most SMs idle) and how many blocks run.
 """
 
 from __future__ import annotations
@@ -37,45 +42,93 @@ import torch.nn.functional as F
 
 from rrnet_torch.utils import native
 
-__all__ = ["PackedWeight", "int8_conv2d", "int8_conv2d_plain", "launches",
-           "pack_launches", "pack_weight", "padded_channels",
-           "quantize_activation", "quantize_pack", "quantize_pack_plain",
-           "quantize_weight"]
+__all__ = ["PackedWeight", "Schedule", "conv_geometry", "conv_schedule",
+           "int8_conv2d", "int8_conv2d_plain", "launches", "pack_launches",
+           "pack_weight", "padded_channels", "quantize_activation",
+           "quantize_pack", "quantize_pack_plain", "quantize_weight"]
 
 launches = 0          # int8_conv2d kernel launches
 pack_launches = 0     # quantize_pack kernel launches
 
 CHANNEL_ALIGN = 16    # csrc/int8_conv.cu: rrnet_int8_channel_align()
 K_ALIGN = 64          # csrc/int8_conv.cu: rrnet_int8_k_align()
+TILE_M = 128          # rrnet_int8_tile_m(): output pixels a tile
+TILE_N = 128          # rrnet_int8_tile_n(): output channels a tile
+STEP_K = 128          # rrnet_int8_step_k(): K bytes a pipeline step
+# a split unit takes at least this many K steps
+MIN_SPLIT_STEPS = 2
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 _fns = None
+_sms = {}
 
 
 def _kernels():
-    """(quantize_pack, conv, conv_splits) C entries of the kernel
-    library."""
+    """(quantize_pack, conv) C entries of the kernel library."""
     global _fns
     if _fns is None:
         lib = native.load("int8_conv")
-        if (lib.rrnet_int8_channel_align() != CHANNEL_ALIGN
-                or lib.rrnet_int8_k_align() != K_ALIGN):
-            raise RuntimeError("int8_conv library's alignments differ from "
-                               "ops/int8_conv.py's")
+        if ((lib.rrnet_int8_channel_align(), lib.rrnet_int8_k_align(),
+             lib.rrnet_int8_tile_m(), lib.rrnet_int8_tile_n(),
+             lib.rrnet_int8_step_k())
+                != (CHANNEL_ALIGN, K_ALIGN, TILE_M, TILE_N, STEP_K)):
+            raise RuntimeError("int8_conv library's alignments or tile "
+                               "differ from ops/int8_conv.py's")
         qp = lib.rrnet_int8_quantize_pack
         qp.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                        + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                ctypes.c_void_p])
         qp.restype = ctypes.c_int
         conv = lib.rrnet_int8_conv
-        conv.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [
+        conv.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 + [
             ctypes.c_void_p]
         conv.restype = ctypes.c_int
-        splits = lib.rrnet_int8_conv_splits
-        splits.argtypes = [ctypes.c_int] * 5
-        splits.restype = ctypes.c_int
-        _fns = qp, conv, splits
+        _fns = qp, conv
     return _fns
+
+
+def _sm_count(device: torch.device) -> int:
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
+
+
+class Schedule(NamedTuple):
+    """How the kernel walks one convolution: tiles_m x tiles_n output
+    tiles, each in `splits` units of `split_steps` K steps (the last unit
+    of a tile may take fewer) out of `steps`, on `grid` persistent blocks
+    that take the `units` in turn."""
+    tiles_m: int
+    tiles_n: int
+    steps: int
+    split_steps: int
+    splits: int
+    units: int
+    grid: int
+
+
+def conv_schedule(m: int, cout: int, kp: int, sms: int) -> Schedule:
+    """The schedule of a conv of m = N*Ho*Wo output pixels, `cout`
+    channels and packed rows of kp bytes on a card of `sms` SMs. K is
+    split only where the output tiles alone fill at most half of the SMs:
+    then into as many units a tile as keep the units within one wave
+    (sms), each at least MIN_SPLIT_STEPS steps. The grid is one block an
+    SM, or one a unit where there are fewer units."""
+    tiles_m = -(-m // TILE_M)
+    tiles_n = -(-cout // TILE_N)
+    steps = -(-kp // STEP_K)
+    tiles = tiles_m * tiles_n
+    splits = 1
+    if 2 * tiles <= sms:
+        splits = max(1, min(sms // tiles, steps // MIN_SPLIT_STEPS))
+    split_steps = -(-steps // splits)
+    splits = -(-steps // split_steps)
+    units = tiles * splits
+    return Schedule(tiles_m, tiles_n, steps, split_steps, splits, units,
+                    min(units, sms))
 
 
 def padded_channels(c: int) -> int:
@@ -204,6 +257,44 @@ def int8_conv2d_plain(xq: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
     return y
 
 
+def conv_geometry(xq: torch.Tensor, w: PackedWeight, stride, pad4
+                  ) -> Tuple[int, int, int, int]:
+    """(sh, sw, ho, wo) of the kernel's call on `quantize_pack`'s output
+    `xq` with the packed weight `w`; raises ValueError where the call lies
+    outside the kernel's contract: an input that is not a contiguous
+    (N, H, W, Cp) int8 map with Cp the weight's channels padded to
+    CHANNEL_ALIGN, rows that are not `pack_weight`'s (int8, (cout, Kp),
+    Kp a multiple of K_ALIGN holding kh*kw*Cp, contiguous, 16-byte aligned
+    for the weights' tensor map, on the input's device), a stride below 1,
+    an empty output, or more than 2^31 - 1 input or output pixels (the
+    kernel's pixel indices are 32-bit)."""
+    cout, cin, kh, kw = w.wq.shape
+    if xq.dtype != torch.int8 or xq.dim() != 4 or not xq.is_contiguous():
+        raise ValueError("int8_conv2d takes a contiguous (N, H, W, Cp) int8 "
+                         "input (quantize_pack's)")
+    n, h, wd, cp = xq.shape
+    if cp != padded_channels(cin):
+        raise ValueError(f"input has {cp} channels, the weight {cin} "
+                         f"(padded {padded_channels(cin)})")
+    kp = w.rows.shape[1] if w.rows.dim() == 2 else -1
+    if (w.rows.device != xq.device or w.rows.dtype != torch.int8
+            or tuple(w.rows.shape) != (cout, kp) or kp % K_ALIGN
+            or kp < kh * kw * cp or not w.rows.is_contiguous()
+            or w.rows.data_ptr() % 16):
+        raise ValueError("int8_conv2d needs pack_weight's rows on the "
+                         "input's device")
+    sh, sw = _pair(stride)
+    ho, wo = out_size(h, wd, kh, kw, (sh, sw), pad4) if min(sh, sw) > 0 \
+        else (0, 0)
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"empty output: {h}x{wd} input, {kh}x{kw} kernel, "
+                         f"stride {(sh, sw)}, pad {pad4}")
+    if max(n * h * wd, n * ho * wo) >= 2 ** 31:
+        raise ValueError(f"int8_conv2d takes fewer than 2^31 input and "
+                         f"output pixels, got {n}x{h}x{wd} -> {n}x{ho}x{wo}")
+    return sh, sw, ho, wo
+
+
 def int8_conv2d(xq: torch.Tensor, w: PackedWeight, s_in: float,
                 bias: Optional[torch.Tensor] = None,
                 stride: Union[int, Sequence[int]] = 1,
@@ -232,26 +323,10 @@ def int8_conv2d(xq: torch.Tensor, w: PackedWeight, s_in: float,
                                  out_dtype)
     if xq.device.type != "cuda":
         raise ValueError(f"int8_conv2d runs on cpu or cuda, not {xq.device}")
-    cout, cin, kh, kw = w.wq.shape
-    if xq.dtype != torch.int8 or xq.dim() != 4 or not xq.is_contiguous():
-        raise ValueError("int8_conv2d takes a contiguous (N, H, W, Cp) int8 "
-                         "input (quantize_pack's)")
+    sh, sw, ho, wo = conv_geometry(xq, w, stride, pad4)
+    cout, _, kh, kw = w.wq.shape
     n, h, wd, cp = xq.shape
-    if cp != padded_channels(cin):
-        raise ValueError(f"input has {cp} channels, the weight {cin} "
-                         f"(padded {padded_channels(cin)})")
     kp = w.rows.shape[1]
-    if (w.rows.device != xq.device or w.rows.dtype != torch.int8
-            or tuple(w.rows.shape) != (cout, kp) or kp % K_ALIGN
-            or kp < kh * kw * cp or not w.rows.is_contiguous()):
-        raise ValueError("int8_conv2d needs pack_weight's rows on the "
-                         "input's device")
-    sh, sw = _pair(stride)
-    ho, wo = out_size(h, wd, kh, kw, (sh, sw), pad4) if min(sh, sw) > 0 \
-        else (0, 0)
-    if ho <= 0 or wo <= 0:
-        raise ValueError(f"empty output: {h}x{wd} input, {kh}x{kw} kernel, "
-                         f"stride {(sh, sw)}, pad {pad4}")
     if n == 0:
         return torch.empty((n, cout, ho, wo), dtype=out_dtype,
                            device=xq.device)
@@ -268,9 +343,10 @@ def int8_conv2d(xq: torch.Tensor, w: PackedWeight, s_in: float,
             raise ValueError(f"bias must be ({cout},) on {xq.device}")
     else:
         bias = None
-    _, conv, conv_splits = _kernels()
-    # a conv whose K is split over blocks sums into a zeroed int32 map
-    split = conv_splits(n, ho, wo, cout, kp) == 1
+    _, conv = _kernels()
+    plan = conv_schedule(n * ho * wo, cout, kp, _sm_count(xq.device))
+    # a conv whose K is split over units sums into a zeroed int32 map
+    split = plan.splits > 1
     acc = None
     if split and out_dtype == torch.int32:
         out = torch.zeros((n, cout, ho, wo), dtype=out_dtype,
@@ -288,10 +364,13 @@ def int8_conv2d(xq: torch.Tensor, w: PackedWeight, s_in: float,
                    None if bias is None else bias.data_ptr(),
                    out.data_ptr(), None if acc is None else acc.data_ptr(),
                    _OUT_KIND[out_dtype], n, h, wd, cp, cout, kh, kw, sh, sw,
-                   pad4[0], pad4[2], ho, wo, kp, stream)
+                   pad4[0], pad4[2], ho, wo, kp, plan.split_steps, plan.grid,
+                   stream)
     if err != 0:
         raise RuntimeError(f"int8_conv2d kernel launch failed: CUDA error "
-                           f"{err}")
+                           f"{err}" + (" (10000 + the driver's CUresult of "
+                                       "the weights' tensor map)"
+                                       if err >= 10000 else ""))
     global launches
     launches += 1
     return out

@@ -31,6 +31,8 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, assume, given, settings
+from hypothesis import strategies as st
 
 from rrnet_torch import config as tcfg
 from rrnet_torch.models import build_model as t_build
@@ -464,3 +466,39 @@ def test_cuda_kernels_bit_equal_plain(cuda_device, k, stride, jpad, pad4,
         want = ic.int8_conv2d_plain(xq, pw.wq, pw.s_w, absmax / 127.0, b,
                                     stride, pad4, out)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@settings(max_examples=80, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(n=st.integers(1, 4), h=st.integers(1, 70), w=st.integers(1, 70),
+       cin=st.integers(1, 512), cout=st.integers(1, 300),
+       k=st.sampled_from([1, 3, 5]), stride=st.sampled_from([1, 2]),
+       pad4=st.tuples(*[st.integers(0, 2)] * 4), bias=st.booleans(),
+       bf16_in=st.booleans(), seed=st.integers(0, 2 ** 16))
+def test_cuda_conv_random_geometries_bit_equal(cuda_device, n, h, w, cin,
+                                               cout, k, stride, pad4, bias,
+                                               bf16_in, seed):
+    """Random geometries: odd and even maps, stride 1 and 2, asymmetric
+    pads, cout off the 128-channel tile, Cp 16-512, batch 1-4, split and
+    unsplit K; int32, bf16 and f32 (+ bias) bit-equal to the plain
+    versions."""
+    ho = (h + pad4[0] + pad4[1] - k) // stride + 1
+    wo = (w + pad4[2] + pad4[3] - k) // stride + 1
+    assume(ho > 0 and wo > 0)
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    x = torch.randn(n, cin, h, w, device=cuda_device, generator=g)
+    if bf16_in:
+        x = x.to(torch.bfloat16)
+    wt = torch.randn(cout, cin, k, k, device=cuda_device, generator=g)
+    b = torch.randn(cout, device=cuda_device, generator=g) if bias else None
+    absmax = float(x.abs().amax()) * 0.7
+    pw = ic.pack_weight(wt)
+    xq = ic.quantize_pack(x, absmax)
+    for out in (torch.int32, torch.bfloat16, torch.float32):
+        got = ic.int8_conv2d(xq, pw, absmax / 127.0, b, stride, pad4, out)
+        torch.cuda.synchronize()
+        want = ic.int8_conv2d_plain(xq, pw.wq, pw.s_w, absmax / 127.0, b,
+                                    stride, pad4, out)
+        assert torch.equal(got, want), (out, ho, wo)
+
