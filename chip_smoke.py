@@ -19,15 +19,20 @@ Phases (any failure exits non-zero before the result line):
      16 and 24 warps a block; the class-parallel soft-NMS also against the
      serial kernel,
      with the busiest class's chain length per image beside its time; hard
-     NMS against the plain fixpoint; the DCN kernels against both bound
+     NMS against the plain fixpoint (NaN, +-0 and +-inf scores,
+     thresholds 0 and -0.1, B=1 and 8, K=4096, 48-box chains among its
+     cases); the DCN kernels against both bound
      routes (f32 on the CUDA cores, 3xTF32 on the tensor cores), the
      backward's two kernels apart; hard NMS also at RetinaNet's shape
      (B=4, K=1000, class-agnostic, thr 0.3, +1 extents, valid = score >
      0.1, decoded anchors crowded in one window). `--before DIR` builds
      another version of the sources that DIR holds (the DCN trio,
      `soft_nms_classes.cu`, `soft_nms.cu`, `int8_conv.cu` with 5cd1773's
-     C interface) and times it beside this checkout's, in turns
-     ("before/after" lines; the int8 conv's device ms at every shape of
+     C interface, `hard_nms.cu` with 0fe0581's: the wrapper's torch sort
+     around it) and times it beside this checkout's, in turns
+     ("before/after" lines; hard NMS's wrapper and device ms and device
+     kernels a call at B=1, 4 and 8, K=1500 per class, and RetinaNet's
+     B=4, K=1000; the int8 conv's device ms at every shape of
      the int8 check, and in phase 12 a served int8 forward with the other
      version's conv: p50 and the convs' device ms);
   4. small-input reference: a tiny RRNet (hard NMS and soft-NMS), a tiny
@@ -162,6 +167,7 @@ and the last line is the result. It exits non-zero without a result when no CUDA
 present.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -184,10 +190,22 @@ TF32_FLOPS_PER_S = 495e12       # tensor cores, TF32 inputs, f32 accumulate
 # decay multiply and the threshold compare.
 SOFT_NMS_OPS_PER_OPEN_SLOT = 11
 SOFT_NMS_OPS_PER_OVERLAP = 12
-# f32 operations per box pair of hard NMS, counted as for soft-NMS: IoU
-# (min/max/sub/add on both axes, clamps, inter, union, clamp, divide),
-# the class compare and select, and the threshold compare.
-HARD_NMS_OPS_PER_PAIR = 18
+# Rate of the f32 and int32 operations that are not FMAs (add, sub, mul,
+# min, max, compare): 132 SMs x 128 lanes x 1.98 GHz, half the data
+# sheet's 67e12, which counts an FMA as two operations.
+NON_FMA_OPS_PER_S = 33.5e12
+# Least operations of hard NMS, counted on the inputs (`hard_nms_work`):
+# one class compare a pair of valid boxes (when class ids are given); the
+# four compares that find whether two boxes intersect, a same-class pair;
+# the IoU test, an intersecting same-class pair (every same-class pair at
+# thr < 0, where iou 0 > thr): iw and ih (min, max, sub, clamp each, and
+# the +1 each with plus_one), inter, the union (add, sub, clamp), the
+# divide and the threshold compare; each valid box's area once (two subs
+# and a mul, two adds more with plus_one); K log2 K compares an image for
+# the score order.
+HARD_NMS_SCREEN_OPS = 4
+HARD_NMS_IOU_OPS = 14
+HARD_NMS_AREA_OPS = 3
 # f32 operations of DCNv2 beside its GEMMs. Per (position, tap, channel):
 # the forward's bilinear sample (4 mul, 3 add) and mask multiply; the
 # backward's recomputed sample (7), masked sample for grad weight (1),
@@ -739,11 +757,245 @@ def check_soft_nms_classes(torch, sn, rng, card, before=None):
     return line
 
 
-def check_hard_nms(torch, hn, rng, card):
+def before_hard_nms(torch, src):
+    """`hard_nms` built from another version of `hard_nms.cu` in `src`
+    (0fe0581's C interface: the wrapper sorts by score with torch and
+    passes the order and a scratch mask) into src/build, launched with that
+    wrapper's work around it: the masked scores, `torch.sort`, the scratch
+    and the launch. Takes `hard_nms`'s arguments; counts no launch."""
+    import ctypes
+    from pathlib import Path
+    from rrnet_torch.utils import native
+    src = Path(src)
+    lib = native.build_all(("hard_nms",), src, src / "build")["hard_nms"]
+    fn = ctypes.CDLL(str(lib)).rrnet_hard_nms
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def run(boxes, scores, iou_threshold, valid=None, class_ids=None,
+            plus_one=False):
+        bsz, k = scores.shape
+        dev = boxes.device
+        keep = torch.empty((bsz, k), dtype=torch.bool, device=dev)
+        masked = scores if valid is None else torch.where(valid, scores,
+                                                          -torch.inf)
+        order = torch.sort(masked, dim=1, descending=True,
+                           stable=True).indices
+        scratch = torch.empty(bsz * (k + 1) * ((k + 63) // 64),
+                              dtype=torch.int64, device=dev)
+        err = fn(boxes.data_ptr(), order.data_ptr(),
+                 None if valid is None else valid.data_ptr(),
+                 None if class_ids is None else class_ids.data_ptr(),
+                 scratch.data_ptr(), keep.data_ptr(), bsz, k, iou_threshold,
+                 int(plus_one), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"hard_nms ({src}) launch failed: CUDA error "
+                               f"{err}")
+        return keep
+
+    return run
+
+
+def device_kernels_per_call(torch, fn, reps=5):
+    """Device kernels a call of `fn` launches, by torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / reps
+
+
+def hard_nms_before_after(torch, hn, before, label, args, plus_one, card):
+    """This checkout's `hard_nms` and the `--before` build on the same
+    inputs, in turns (before, after, after, before): the wrapper ms a call
+    (50 calls back to back), the device ms (torch.profiler) and the device
+    kernels a call of each; both keep masks must agree (the inputs hold no
+    NaN score, where the two orders differ). Returns the numbers."""
+    versions = {"after": lambda: hn.hard_nms(*args, plus_one=plus_one),
+                "before": lambda: before(*args, plus_one=plus_one)}
+    if not torch.equal(versions["after"](), versions["before"]()):
+        raise AssertionError(f"hard_nms {label}: the --before build keeps "
+                             "other boxes")
+    times = {v: [] for v in versions}
+    for v in ("before", "after", "after", "before"):
+        times[v].append(cuda_ms(versions[v], reps=50))
+    out = {}
+    for v, f in versions.items():
+        out[v] = {"ms": float(np.mean(times[v])),
+                  "device_ms": sum(device_split(torch, f, reps=20).values()),
+                  "device_kernels": device_kernels_per_call(torch, f)}
+    print(f"  hard_nms before/after, {label}, on {card}: "
+          f"{out['before']['ms']:.4f} -> {out['after']['ms']:.4f} ms a call "
+          f"({out['before']['ms'] / out['after']['ms']:.2f}x); device "
+          f"{out['before']['device_ms']:.4f} -> "
+          f"{out['after']['device_ms']:.4f} ms "
+          f"({out['before']['device_ms'] / out['after']['device_ms']:.2f}x);"
+          f" device kernels a call {out['before']['device_kernels']:g} -> "
+          f"{out['after']['device_kernels']:g} (each ms the mean of two "
+          "timings, before, after, after, before)", flush=True)
+    return out
+
+
+def hard_nms_work(torch, boxes, iou_threshold, valid=None, class_ids=None,
+                  plus_one=False):
+    """What hard NMS on these inputs needs at the least (the
+    HARD_NMS_*_OPS above): the pairs of valid boxes, of them those of one
+    class, of those the ones that take the IoU test (iw > 0 and ih > 0 as
+    `ops.box.pairwise_iou` computes them; all of them at thr < 0), and
+    the operations that makes, with the bytes of the inputs and the keep
+    mask (boxes, scores, valid, class ids read once, keep written once)
+    and the bound they give."""
+    import math
+    bsz, k = boxes.shape[:2]
+    off = 1.0 if plus_one else 0.0
+    upper = torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
+    n_valid = valid_pairs = same = tested = 0
+    for i in range(bsz):
+        b = boxes[i]
+        pair = upper
+        if valid is not None:
+            pair = pair & valid[i][:, None] & valid[i][None, :]
+            n_valid += int(valid[i].sum())
+        else:
+            n_valid += k
+        one = pair
+        if class_ids is not None:
+            one = pair & (class_ids[i][:, None] == class_ids[i][None, :])
+        if iou_threshold >= 0:
+            iw = (torch.minimum(b[:, None, 2], b[None, :, 2])
+                  - torch.maximum(b[:, None, 0], b[None, :, 0]) + off)
+            ih = (torch.minimum(b[:, None, 3], b[None, :, 3])
+                  - torch.maximum(b[:, None, 1], b[None, :, 1]) + off)
+            test = one & (iw > 0) & (ih > 0)
+        else:
+            test = one
+        valid_pairs += int(pair.sum())
+        same += int(one.sum())
+        tested += int(test.sum())
+    extra = 2 if plus_one else 0
+    ops = ((valid_pairs if class_ids is not None else 0)
+           + HARD_NMS_SCREEN_OPS * same
+           + (HARD_NMS_IOU_OPS + extra) * tested
+           + (HARD_NMS_AREA_OPS + extra) * n_valid
+           + bsz * k * math.log2(max(k, 2)))
+    nbytes = bsz * k * (16 + 4 + (1 if valid is not None else 0)
+                        + (4 if class_ids is not None else 0) + 1)
+    bound_ops = ops / NON_FMA_OPS_PER_S * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"valid_pairs": valid_pairs, "same_class_pairs": same,
+            "iou_tested_pairs": tested, "ops": ops, "bytes": nbytes,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+
+
+@contextlib.contextmanager
+def recording_hard_nms(calls):
+    """Within it, RRNet's forward records the arguments of each
+    `hard_nms` call it makes (its own stage-1 candidates) into `calls`,
+    as keyword dicts, and still launches the kernel."""
+    from rrnet_torch.models import rrnet
+    inner = rrnet.hard_nms
+    names = ("boxes", "scores", "iou_threshold", "valid", "class_ids",
+             "plus_one")
+
+    def record(*args, **kw):
+        calls.append({**dict(zip(names, args)), **kw})
+        return inner(*args, **kw)
+
+    rrnet.hard_nms = record
+    try:
+        yield calls
+    finally:
+        rrnet.hard_nms = inner
+
+
+def hard_nms_on_traffic(torch, hn, label, run, per_run, card, before=None):
+    """`hard_nms` on a phase's own candidates: its device ms a call inside
+    `run` (one served forward, or one batch's six scales: `per_run` calls;
+    device_split over one warm-up and two runs), the same calls timed
+    back to back alone (with `before`, the `--before` build too, in turns:
+    before, after, after, before), and what their pairs need
+    (`hard_nms_work`, over the last run's calls), with the bound that
+    gives; the scores' distinct values a call. Returns the numbers."""
+    calls = []
+    with recording_hard_nms(calls):
+        split = device_split(torch, run, reps=2)
+    calls = calls[-per_run:]
+    in_run = sum(v for k, v in split.items() if "hard_nms_" in k) / per_run
+    versions = {"after": hn.hard_nms}
+    if before is not None:
+        versions["before"] = before
+    alone = {v: [] for v in versions}
+    for v in ("before", "after", "after", "before"):
+        if v in versions:
+            alone[v].append(sum(sum(device_split(
+                torch, lambda c=c: versions[v](**c), reps=20).values())
+                for c in calls) / per_run)
+    alone = {v: float(np.mean(t)) for v, t in alone.items()}
+    distinct = [int(torch.unique(c["scores"]).numel()) for c in calls]
+    work = {}
+    for c in calls:
+        w = hard_nms_work(torch, c["boxes"], c["iou_threshold"],
+                          c.get("valid"), c.get("class_ids"),
+                          c.get("plus_one", False))
+        for k, v in w.items():
+            if k != "bound_by":
+                work[k] = work.get(k, 0) + v
+    shape = list(calls[-1]["scores"].shape)
+    out = {"shape": shape, "calls": per_run, "device_ms_in_run": in_run,
+           "device_ms_alone": alone["after"],
+           "before_device_ms_alone": alone.get("before"),
+           "distinct_scores": distinct, "run_device_ms": sum(split.values()),
+           "bound_ms": work["bound_ms"] / per_run,
+           **{k: work[k] for k in ("valid_pairs", "same_class_pairs",
+                                   "iou_tested_pairs")}}
+    tested = work["iou_tested_pairs"]
+    print(f"  hard_nms on {label} on {card}: {per_run} call(s) of "
+          f"B={shape[0]} K={shape[1]}; device {in_run:.4f} ms a call inside "
+          f"the run (of {out['run_device_ms']:.3f} ms of device time a "
+          f"run), {alone['after']:.4f} ms alone"
+          + (f" (the --before build {alone['before']:.4f} ms, in turns)"
+             if before is not None else "")
+          + f"; {distinct} distinct scores a call; of {work['valid_pairs']} "
+          f"pairs {work['same_class_pairs']} of one class, {tested} of those "
+          f"intersecting ({tested / max(work['same_class_pairs'], 1):.2%} "
+          f"of one class, {tested / max(work['valid_pairs'], 1):.2%} of "
+          f"all); bound {out['bound_ms']:.6f} ms a call", flush=True)
+    return out
+
+
+def hard_nms_chains(k, n=48):
+    """In score order (scores fall with the index) the first n boxes of
+    every 64 form a chain in which each suppresses the next at 0.5 (10 px
+    wide, 2 px apart: IoU 0.667 with the next, 0.43 with the one after);
+    the blocks lie 100 px apart, the other 64 - n boxes stand alone."""
+    idx = np.arange(k)
+    blk, pos = idx // 64, idx % 64
+    x = np.where(pos < n, 2.0 * pos, 1000.0 + 20.0 * pos)
+    y = 100.0 * blk
+    boxes = np.stack([x, y, x + 10, y + 10], -1)[None].astype(np.float32)
+    return boxes, np.linspace(1.0, 0.01, k, dtype=np.float32)[None]
+
+
+def check_hard_nms(torch, hn, rng, card, before=None):
     """Hard NMS against the plain fixpoint on the card (keep bit-equal) at
     the stage-1 candidate shape, per class and class-agnostic, and edge
-    cases; timed beside the plain fixpoint and against its bound. Returns
-    the kernel's line."""
+    cases: NaN scores (valid and invalid), +-0 and +-inf, thresholds 0 and
+    -0.1, B=1 and B=8 (the fused flip's 2B) at K=1500, K=4096 at B=1, a
+    48-box chain in every 64-block, bf16-valued scores (many ties) and one
+    score for all; timed beside the plain fixpoint and against its bound,
+    with the device kernels a call. With `before` (the `--before` build,
+    `before_hard_nms`), both timed in turns at B=1, 4 and 8, K=1500 per
+    class, at B=1 with bf16-valued scores, and at RetinaNet's B=4,
+    K=1000. Returns the kernel's line."""
+    from rrnet_torch.models.retinanet import NMS_IOU
     dev = torch.device("cuda")
     t = (lambda a: None if a is None else
          torch.from_numpy(np.ascontiguousarray(a)).to(dev))
@@ -755,6 +1007,22 @@ def check_hard_nms(torch, hn, rng, card):
     chain = np.stack([x, np.zeros(n), x + 10, np.full(n, 10.0)],
                      -1)[None].astype(np.float32)
     ident = np.tile(np.array([[[10, 10, 20, 20]]], np.float32), (1, 64, 1))
+    # the cases added with the one-launch kernel, from a generator of
+    # their own (the later phases' draws stay as they were)
+    own = np.random.RandomState(15)
+    nan = scores.copy()
+    nan[:, ::7] = np.nan
+    odd = scores.copy()
+    odd[:, ::5] = 0.0
+    odd[:, 1::5] = -0.0
+    odd[:, 2::11] = np.inf
+    odd[:, 3::13] = -np.inf
+    b1, s1, c1 = detections_like(own, 1, 1500, 10)
+    b8, s8, c8 = detections_like(own, 8, 1500, 10)
+    chains_b, chains_s = hard_nms_chains(1500)
+    # scores as a bf16 forward gives them: 8 bits of mantissa, many ties
+    tied = torch.from_numpy(scores).bfloat16().float().numpy()
+    tied1 = torch.from_numpy(s1).bfloat16().float().numpy()
     cases = [
         ("main B=4 K=1500 per-class", boxes, scores, None, cls, 0.7, False),
         ("main B=4 K=1500 class-agnostic", boxes, scores, None, None, 0.7,
@@ -772,6 +1040,25 @@ def check_hard_nms(torch, hn, rng, card):
          np.linspace(1, .1, n, dtype=np.float32)[None], None, None, 0.5,
          False),
         ("K=4096", big_b, big_s, None, big_c, 0.5, False),
+        ("NaN scores, valid and invalid", boxes, nan, mask, cls, 0.7, False),
+        ("NaN scores, no mask, class-agnostic", boxes, nan, None, None, 0.7,
+         False),
+        ("+-0 and +-inf scores", boxes, odd, mask, cls, 0.7, False),
+        ("thr 0", boxes, scores, mask, cls, 0.0, False),
+        ("thr -0.1", boxes[:, :500], scores[:, :500], mask[:, :500],
+         cls[:, :500], -0.1, False),
+        ("thr -0.1, plus_one", boxes[:, :200], scores[:, :200], None, None,
+         -0.1, True),
+        ("B=1 K=1500", b1, s1, None, c1, 0.7, False),
+        ("B=8 K=1500", b8, s8, None, c8, 0.7, False),
+        ("K=4096 B=1", big_b[:1], big_s[:1], None, big_c[:1], 0.5, False),
+        ("a chain of 48 in every 64-block", chains_b, chains_s, None, None,
+         0.5, False),
+        ("bf16-valued scores (ties)", boxes, tied, mask, cls, 0.7, False),
+        ("bf16-valued scores, class-agnostic, +1", boxes, tied, None, None,
+         0.5, True),
+        ("K=4096 B=1 one score for all", big_b[:1],
+         np.full((1, 4096), 0.25, np.float32), None, big_c[:1], 0.5, False),
     ]
     for name, b, s, v, c, thr, plus_one in cases:
         args = (t(b), t(s), thr, t(v), t(c))
@@ -789,33 +1076,56 @@ def check_hard_nms(torch, hn, rng, card):
     ms = cuda_ms(lambda: hn.hard_nms(*args), reps=50)
     split = device_split(torch, lambda: hn.hard_nms(*args), reps=20)
     kernels = sum(v for k, v in split.items() if "hard_nms_" in k)
+    n_kernels = device_kernels_per_call(torch, lambda: hn.hard_nms(*args))
     plain_ms = cuda_ms(lambda: hn.hard_nms_reference(*args), reps=3, warm=1)
-    bsz, kk = scores.shape
-    ops = bsz * kk * (kk - 1) / 2 * HARD_NMS_OPS_PER_PAIR
-    nbytes = bsz * kk * ((16 + 4 + 4) + 1)
-    bound_ops = ops / F32_FLOPS_PER_S * 1e3
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    work = hard_nms_work(torch, args[0], 0.7, None, args[4])
     print(f"  hard_nms timing at B=4 K=1500 per class on {card}: wrapper "
-          f"{ms:.4f} ms a call (device {sum(split.values()):.4f} ms: the "
-          f"mask and scan kernels {kernels:.4f}, the score sort and the rest "
+          f"{ms:.4f} ms a call (device {sum(split.values()):.4f} ms in "
+          f"{n_kernels:g} device kernels a call: the hard_nms kernel "
+          f"{kernels:.4f}, the score sort and the rest "
           f"{sum(split.values()) - kernels:.4f}), plain fixpoint "
-          f"{plain_ms:.3f} ms, bound {max(bound_ops, bound_bytes):.6f} ms "
-          f"({ops:.4g} ops over {bsz * kk * (kk - 1) // 2} pairs, {nbytes} "
-          "bytes); no PyTorch call computes NMS (torchvision is not "
-          "installed), so library_ms is null; " + ", ".join(
-              f"{k} {v:.4f}" for k, v in sorted(split.items())), flush=True)
+          f"{plain_ms:.3f} ms, bound {work['bound_ms']:.6f} ms "
+          f"({work['bound_by']}: {work['ops']:.4g} ops; of "
+          f"{work['valid_pairs']} pairs {work['same_class_pairs']} of one "
+          f"class, {work['iou_tested_pairs']} of those intersecting; "
+          f"{work['bytes']} bytes); no PyTorch call computes NMS "
+          "(torchvision is not installed), so library_ms is null; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items())),
+          flush=True)
     rb, rs, rv = retina_candidates_like(rng, 4, 1000)
     retina = time_hard_nms_retina(torch, hn, t(rb), t(rs), t(rv), card,
                                   "RetinaNet shape, B=4 K=1000")
-    return {"name": "hard_nms", "route": "cuda",
+    line = {"name": "hard_nms", "route": "cuda",
             "source": "rrnet_torch/csrc/hard_nms.cu",
             "replaces": "rrnet_tpu/ops/nms.py:46 (not a TPU kernel: the "
                         "XLA hard-NMS fixpoint)",
             "launches": None, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
-            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-            "library_ms": None, "device_ms": sum(split.values()),
-            "kernels_device_ms": kernels, "retinanet_k1000": retina}
+            "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+            "bound_by": work["bound_by"], "library_ms": None,
+            "device_ms": sum(split.values()), "kernels_device_ms": kernels,
+            "device_kernels": n_kernels, "pairs": {
+                k: work[k] for k in ("valid_pairs", "same_class_pairs",
+                                     "iou_tested_pairs")},
+            "retinanet_k1000": retina}
+    if before is not None:
+        line["before_after"] = {
+            "B=1 K=1500 per class": hard_nms_before_after(
+                torch, hn, before, "B=1 K=1500 per class",
+                (t(b1), t(s1), 0.7, None, t(c1)), False, card),
+            "B=1 K=1500 per class, bf16-valued scores": hard_nms_before_after(
+                torch, hn, before, "B=1 K=1500 per class, bf16-valued scores",
+                (t(b1), t(tied1), 0.7, None, t(c1)), False, card),
+            "B=4 K=1500 per class": hard_nms_before_after(
+                torch, hn, before, "B=4 K=1500 per class", args, False,
+                card),
+            "B=8 K=1500 per class": hard_nms_before_after(
+                torch, hn, before, "B=8 K=1500 per class",
+                (t(b8), t(s8), 0.7, None, t(c8)), False, card),
+            "RetinaNet B=4 K=1000": hard_nms_before_after(
+                torch, hn, before, "RetinaNet B=4 K=1000, class-agnostic, "
+                f"thr {NMS_IOU}, +1", (t(rb), t(rs), NMS_IOU, t(rv)), True,
+                card)}
+    return line
 
 
 def retina_candidates_like(rng, b, k, bucket=(768, 1408)):
@@ -849,9 +1159,8 @@ def time_hard_nms_retina(torch, hn, boxes, scores, valid, card, label):
     """RetinaNet's class-agnostic hard NMS (thr 0.3, +1 extents, valid
     mask) on these (B, K) candidates: the kernel's keep mask bit-equal to
     the plain fixpoint, then both timed (the wrapper also split into its
-    device kernels by the profiler), beside the bound of the pairs of
-    valid candidates (HARD_NMS_OPS_PER_PAIR each) and the bytes of boxes,
-    scores, valid and keep. Returns the numbers."""
+    device kernels by the profiler), beside the bound of what the
+    candidates' pairs need (`hard_nms_work`). Returns the numbers."""
     from rrnet_torch.models.retinanet import NMS_IOU
     args = (boxes, scores, NMS_IOU, valid)
     got = hn.hard_nms(*args, plus_one=True)
@@ -868,26 +1177,24 @@ def time_hard_nms_retina(torch, hn, boxes, scores, valid, card, label):
     plain_ms = cuda_ms(lambda: hn.hard_nms_reference(*args, plus_one=True),
                        reps=3, warm=1)
     bsz, kk = scores.shape
-    n_valid = valid.sum(1).double()
-    pairs = float((n_valid * (n_valid - 1) / 2).sum())
-    ops = pairs * HARD_NMS_OPS_PER_PAIR
-    nbytes = bsz * kk * (16 + 4 + 1 + 1)
-    bound_ops = ops / F32_FLOPS_PER_S * 1e3
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    work = hard_nms_work(torch, boxes, NMS_IOU, valid, None, True)
     out = {"shape": [bsz, kk], "valid": int(valid.sum()),
            "kept": int(got.sum()), "ms": ms, "plain_ms": plain_ms,
            "device_ms": sum(split.values()), "kernels_device_ms": kernels,
-           "bound_ms": max(bound_ops, bound_bytes),
-           "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+           "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+           "valid_pairs": work["valid_pairs"],
+           "iou_tested_pairs": work["iou_tested_pairs"]}
     print(f"  hard_nms {label}: keep bit-equal to the plain fixpoint "
           f"({out['kept']} kept of {out['valid']} valid, B={bsz} K={kk}, "
           f"class-agnostic, thr {NMS_IOU}, +1); on {card}: {ms:.4f} ms a "
-          f"call (device {out['device_ms']:.4f} ms: the mask and scan "
-          f"kernels {kernels:.4f}, the score mask, sort and the rest "
-          f"{out['device_ms'] - kernels:.4f}), plain fixpoint "
+          f"call (device {out['device_ms']:.4f} ms: the hard_nms kernel "
+          f"{kernels:.4f}, the rest {out['device_ms'] - kernels:.4f}), "
+          f"plain fixpoint "
           f"{plain_ms:.3f} ms, bound "
-          f"{out['bound_ms']:.6f} ms ({out['bound_by']}: {ops:.4g} ops over "
-          f"{pairs:.0f} valid pairs, {nbytes} bytes)", flush=True)
+          f"{out['bound_ms']:.6f} ms ({out['bound_by']}: {work['ops']:.4g} "
+          f"ops; {work['valid_pairs']} valid pairs, "
+          f"{work['iou_tested_pairs']} of them intersecting; "
+          f"{work['bytes']} bytes)", flush=True)
     return out
 
 
@@ -1601,7 +1908,7 @@ def check_detections(dets, max_rows, n_cls):
         raise AssertionError("scores not non-increasing and non-negative")
 
 
-def run_main_path(torch, sn, hn, card, before_soft=None):
+def run_main_path(torch, sn, hn, card, before_soft=None, before_hard=None):
     """Phase 5: the flagship preset served through `Predictor` at its
     defaults (hard NMS), then on the same model and weights with per-class
     soft-NMS and with class-agnostic soft-NMS. Each setting runs with every
@@ -1735,6 +2042,9 @@ def run_main_path(torch, sn, hn, card, before_soft=None):
     report("defaults (hard NMS)", times, batch_ms, counts, n_rois,
            "hard-NMS fixpoint")
     results["defaults"] = counts
+    served_hard = hard_nms_on_traffic(
+        torch, hn, f"request {sizes[3]}'s own candidates",
+        lambda: pred.predict(images[3]), 1, card, before_hard)
 
     def plain_soft(per_class):
         def select(d):
@@ -1778,14 +2088,13 @@ def run_main_path(torch, sn, hn, card, before_soft=None):
         dict(sigma=m.soft_nms_sigma, iou_threshold=m.nms_iou,
              score_threshold=m.soft_nms_score_threshold, method="gaussian",
              max_out=m.stage2_rois), card, before_soft)
-    return results, served
+    return results, served, served_hard
 
 
 def run_trident_path(torch, sn, hn, card):
     """Phase 6: the trires50deform backbone served (eval forwards at
     1x3x768x1408) and trained (train-mode steps at 4x3x512x512) through
     the DCN kernels; returns the (forward, backward) launch counts."""
-    import contextlib
     from rrnet_torch.models.backbones import trident
     from rrnet_torch.ops import dcn
     from rrnet_torch.ops import deform_conv as tdc
@@ -2333,7 +2642,7 @@ def demo_frames(n):
             for i in range(n)]
 
 
-def run_eval_protocol(torch, hn, sn, card):
+def run_eval_protocol(torch, hn, sn, card, before_hard=None):
     """Phase 9: the presets' own eval protocol at full width (bf16, seeded
     weights) over 8 frames of 765x1360 at batch 4. RRNet at its default
     val settings (six scales, no flip, auto_test): images/s, hard_nms
@@ -2412,6 +2721,10 @@ def run_eval_protocol(torch, hn, sn, card):
     if launches != 6 * 2 or other:
         raise AssertionError(f"eval protocol: {launches} hard_nms launches "
                              f"(want 12), {other} soft-NMS launches (want 0)")
+    entry["rrnet_six_scales"]["hard_nms"] = hard_nms_on_traffic(
+        torch, hn, "a six-scale batch's own candidates",
+        lambda: ev.gather(ev.dispatch_batch(imgs)), len(scales), card,
+        before_hard)
 
     # the scale-1 program against a single-scale Evaluator
     single = Evaluator(with_val(cfg, scales=(1.0,)), model, device="cuda")
@@ -4582,7 +4895,8 @@ def main(argv=None) -> int:
                     "another version of some of rrnet_torch/csrc's sources "
                     "(the DCN trio dcn_fwd.cu, dcn_bwd.cu, dcn_common.cuh; "
                     "soft_nms_classes.cu; soft_nms.cu; int8_conv.cu of "
-                    "5cd1773's interface), e.g. the parent commit's; its "
+                    "5cd1773's interface; hard_nms.cu of 0fe0581's "
+                    "interface), e.g. the parent commit's; its "
                     "kernels are built into DIR/build and timed beside this "
                     "checkout's, in turns")
     args = ap.parse_args(argv)
@@ -4616,6 +4930,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     before_pair = before_classes = before_soft = before_i8 = None
+    before_hard = None
     if args.before:
         src = Path(args.before)
         t0 = time.perf_counter()
@@ -4628,17 +4943,21 @@ def main(argv=None) -> int:
             before_soft = before_soft_nms(torch, src)
         if (src / "int8_conv.cu").exists():
             before_i8 = before_int8(torch, src)
+        if (src / "hard_nms.cu").exists():
+            before_hard = before_hard_nms(torch, src)
         if before_pair is None and before_classes is None and (
-                before_soft is None) and before_i8 is None:
+                before_soft is None) and before_i8 is None and (
+                    before_hard is None):
             raise SystemExit(f"--before {src}: no DCN trio, no "
-                             "soft_nms_classes.cu, no soft_nms.cu and no "
-                             "int8_conv.cu there")
+                             "soft_nms_classes.cu, no soft_nms.cu, no "
+                             "int8_conv.cu and no hard_nms.cu there")
         print(f"  the kernels of {src} ("
               + ", ".join(n for n, b in (("DCN", before_pair),
                                          ("soft_nms_classes",
                                           before_classes),
                                          ("soft_nms", before_soft),
-                                         ("int8_conv", before_i8)) if b)
+                                         ("int8_conv", before_i8),
+                                         ("hard_nms", before_hard)) if b)
               + f") built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("kernels vs plain")
@@ -4647,7 +4966,7 @@ def main(argv=None) -> int:
     soft = soft_nms_timings(torch, sn, soft_cases, card, before_soft)
     soft["max_abs_err"] = soft_err
     classes = check_soft_nms_classes(torch, sn, rng, card, before_classes)
-    hard = check_hard_nms(torch, hn, rng, card)
+    hard = check_hard_nms(torch, hn, rng, card, before_hard)
     dcn_fwd, dcn_bwd = check_dcn(torch, rng, card, before_pair)
     int8_conv, int8_pack = check_int8_conv(torch, rng, card, before_i8)
 
@@ -4657,8 +4976,8 @@ def main(argv=None) -> int:
     check_small_trident(torch)
 
     phase("main path")
-    counts, soft["served_frame"] = run_main_path(torch, sn, hn, card,
-                                                 before_soft)
+    counts, soft["served_frame"], hard["served_frame"] = run_main_path(
+        torch, sn, hn, card, before_soft, before_hard)
     hard["launches"] = counts["defaults"]["hard_nms"]
     classes["launches"] = counts["soft_nms_per_class"]["soft_nms_classes"]
     soft["launches"] = counts["soft_nms_class_agnostic"]["soft_nms"]
@@ -4682,7 +5001,8 @@ def main(argv=None) -> int:
     phase("eval protocol")
     t0 = time.perf_counter()
     protocol, hard["eval_protocol_launches"] = run_eval_protocol(
-        torch, hn, sn, card)
+        torch, hn, sn, card, before_hard)
+    hard["six_scale_batch"] = protocol["rrnet_six_scales"]["hard_nms"]
     print(f"  phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("retinanet path")

@@ -5,8 +5,9 @@ The JAX package runs hard NMS as an XLA fixpoint
 (`rrnet_tpu/ops/nms.py::hard_nms`), not as a Pallas kernel; the plain
 version iterates that fixpoint and checks convergence on the host once an
 iteration. The kernel computes the fixpoint (the greedy keep set)
-directly, with no host round trip, so a forward that takes it never waits
-on the device.
+directly, score order included (`ops.nms.score_order`'s), in one launch
+with no host round trip and no scratch, so a forward that takes it never
+waits on the device.
 
 `hard_nms` runs the plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device, where it raises instead of falling
@@ -29,19 +30,37 @@ __all__ = ["hard_nms", "hard_nms_reference", "launches"]
 launches = 0
 
 _kernel_and_max_k = None
+_set_up = set()
 
 
-def _kernel():
-    """The C entry of the kernel library and the largest K it takes."""
+def bind(lib: ctypes.CDLL):
+    """The C entry `rrnet_hard_nms` of a build of `csrc/hard_nms.cu`, its
+    argument types set: boxes, scores, valid, class ids and keep pointers,
+    B, K, the threshold, plus_one and the stream."""
+    fn = lib.rrnet_hard_nms
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel(dev: torch.device):
+    """The C entry of the kernel library and the largest K it takes; the
+    kernel's attributes are set once for each device, before its first
+    launch there."""
     global _kernel_and_max_k
     if _kernel_and_max_k is None:
         lib = native.load("hard_nms")
-        fn = lib.rrnet_hard_nms
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _kernel_and_max_k = fn, lib.rrnet_hard_nms_max_k()
-    return _kernel_and_max_k
+        _kernel_and_max_k = bind(lib), lib.rrnet_hard_nms_max_k(), lib
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _set_up:
+        with torch.cuda.device(index):
+            err = _kernel_and_max_k[2].rrnet_hard_nms_setup()
+        if err != 0:
+            raise RuntimeError(f"hard_nms kernel setup failed: CUDA error "
+                               f"{err}")
+        _set_up.add(index)
+    return _kernel_and_max_k[:2]
 
 
 def hard_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
@@ -70,24 +89,16 @@ def hard_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     keep = torch.empty((bsz, k), dtype=torch.bool, device=dev)
     if bsz == 0:
         return keep
-    fn, max_k = _kernel()
+    fn, max_k = _kernel(dev)
     if not 1 <= k <= max_k:
         raise ValueError(f"hard_nms kernel takes 1 <= K <= {max_k}, got {k}")
-    # score-descending order, lower index first among ties, invalid last
-    # (the plain version's sort)
-    masked = scores if valid is None else torch.where(valid, scores,
-                                                      -torch.inf)
-    order = torch.sort(masked, dim=1, descending=True, stable=True).indices
-    # the pair mask, ceil(K/64) words a row, and a validity word a block
-    scratch = torch.empty(bsz * (k + 1) * ((k + 63) // 64),
-                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(boxes.data_ptr(), order.data_ptr(),
+        err = fn(boxes.data_ptr(), scores.data_ptr(),
                  None if valid is None else valid.data_ptr(),
                  None if class_ids is None else class_ids.data_ptr(),
-                 scratch.data_ptr(), keep.data_ptr(), bsz, k, iou_threshold,
-                 int(plus_one), stream)
+                 keep.data_ptr(), bsz, k, iou_threshold, int(plus_one),
+                 stream)
     if err != 0:
         raise RuntimeError(f"hard_nms kernel launch failed: CUDA error {err}")
     global launches

@@ -24,6 +24,34 @@ _METHODS = {"linear": 1, "gaussian": 2, "hard": 0}
 NEG = -1e30   # score of invalid slots (pallas_nms.py `_NEG`)
 
 
+def score_key(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The int32 key whose descending order is the score order of
+    `score_order`: where(valid, s, -inf) with -0.0 as +0.0, as its IEEE
+    bits made monotone (a negative float's magnitude bits flipped), and
+    every NaN below -inf (INT32_MIN + 1). csrc/hard_nms.cu computes the same
+    key."""
+    masked = torch.where(valid, scores.float(), -torch.inf)
+    masked = torch.where(masked == 0.0, 0.0, masked)
+    bits = masked.contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return torch.where(torch.isnan(masked), -(2 ** 31) + 1, key)
+
+
+def score_order(scores: torch.Tensor,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, K) int64 rank order of `jnp.argsort(-jnp.where(valid, scores,
+    -inf))` (`rrnet_tpu/ops/nms.py:82`): descending by score, ties to the
+    lower index, -0.0 equal to +0.0; invalid boxes score -inf, so they
+    follow every valid box of a higher score and tie by index with valid
+    -inf ones; valid NaN-scored boxes come last, in index order (XLA's sort
+    puts NaN after +inf, and the key is negated). The same on the CPU and
+    on the card: one stable sort of `score_key`."""
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    return torch.sort(score_key(scores, valid), dim=1, descending=True,
+                      stable=True).indices
+
+
 def hard_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
              valid: Optional[torch.Tensor] = None,
              class_ids: Optional[torch.Tensor] = None,
@@ -38,9 +66,7 @@ def hard_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     bsz, k = scores.shape
     if valid is None:
         valid = torch.ones_like(scores, dtype=torch.bool)
-    masked = torch.where(valid, scores, torch.full_like(scores, -torch.inf))
-    # score-descending order, lower index first among ties (jnp.argsort)
-    order = torch.sort(masked, dim=1, descending=True, stable=True).indices
+    order = score_order(scores, valid)
     boxes_s = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
     valid_s = torch.gather(valid, 1, order)
     iou = pairwise_iou(boxes_s, boxes_s, plus_one=plus_one)
