@@ -153,6 +153,27 @@ Phases (any failure exits non-zero before the result line):
      -m rrnet_torch.scripts.eval --data-parallel` on the synthetic split
      writes result files byte-equal to the run without the flag. One
      card gives no multi-card number.
+ 15. reference tools path: (a) the flagship `rrnet` preset (full width,
+     bf16, seeded weights) written out in the reference PyTorch code's
+     checkpoint layout (`utils.convert.reference_state_dict`, wrapped as
+     {"model": {"module." + key: tensor}}), `torch.save`d, read back by
+     `load_torch_state_dict` and converted by `convert_detector_params`
+     (no unexpected key, every tensor bit-equal), loaded strictly into
+     a model of other seeded weights on the card; one `Predictor`
+     request on the demo frame gives detections bit-equal to the first
+     model's (convert and load seconds); (b) full-width forwards at
+     1x3x768x1408 with a seeded roi_jitter of 1 feature px: the returned
+     ROIs are the unjittered ROIs plus the jitter exactly, and a zero
+     jitter changes no output bit; (c) `DCNPooling` at the reference
+     defaults (pooled 7, output_dim 256, fc 1024, 4 samples a bin part,
+     trans_std 0.1, `fc3` drawn nonzero) on the forward's relu'd stride-4
+     map (1x256x192x352) and its 512 ROIs at spatial_scale 0.25, the card
+     against the same module on the CPU within 1e-4 (ms a call); (d)
+     k-means of the synthetic set's GT heights and widths (k 3) on the
+     card against the CPU from the same init, assignments equal and
+     centers within rtol 1e-5 (ms a call); (e) `utils.vis.visualize` of
+     the served detections: its shape, and its box pixels equal to a
+     numpy oracle that enumerates each edge's points.
 The kernels phase also holds the int8 quantize-and-pack pass and the
 int8 convolution bit-equal to their plain versions at the main path's
 shapes (batch 1 and 4 of the 768x1408 bucket, stage 2 on 4x512 ROIs),
@@ -161,7 +182,8 @@ stride-1 shapes, `torch._int_mm`.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then JSON lines hold the data path's, the eval protocol's,
 the retinanet path's, the hrnetv2-attention path's, the int8 path's, the
-micro-batching phase's and the data-parallel path's numbers, one lists
+micro-batching phase's, the data-parallel path's and the reference tools
+path's numbers, one lists
 every kernel,
 and the last line is the result. It exits non-zero without a result when no CUDA device is
 present.
@@ -4887,6 +4909,188 @@ def run_data_parallel(torch, card):
     return entry, launches
 
 
+def rect_oracle(h, w, p1, p2):
+    """The pixels of `cv2.rectangle(p1, p2, thickness=1)` on an h x w
+    image, as (rows, cols): every integer point of each of the four edges
+    between its corners, kept where it lies inside the image."""
+    (x1, y1), (x2, y2) = p1, p2
+    pts = []
+    for (ax, ay), (bx, by) in (((x1, y1), (x2, y1)), ((x2, y1), (x2, y2)),
+                               ((x2, y2), (x1, y2)), ((x1, y2), (x1, y1))):
+        n = max(abs(bx - ax), abs(by - ay)) + 1
+        xs = np.linspace(ax, bx, n).round().astype(np.int64)
+        ys = np.linspace(ay, by, n).round().astype(np.int64)
+        pts.append(np.stack([ys, xs], 1))
+    pts = np.concatenate(pts)
+    pts = pts[(pts[:, 0] >= 0) & (pts[:, 0] < h) & (pts[:, 1] >= 0)
+              & (pts[:, 1] < w)]
+    return pts[:, 0], pts[:, 1]
+
+
+def run_reference_tools(torch, hn, card):
+    """Phase 15 (module docstring): the converted reference checkpoint,
+    roi_jitter, DCNPooling, k-means and `visualize` on the card, the
+    hard-NMS launch count of the phase read just after it. Returns the
+    phase's numbers."""
+    import tempfile
+    from rrnet_torch import config
+    from rrnet_torch.data.synth import make_synth_dataset
+    from rrnet_torch.data.visdrone import parse_annotation_file
+    from rrnet_torch.models import build_model
+    from rrnet_torch.models.layers import init_weights
+    from rrnet_torch.models.modules import DCNPooling
+    from rrnet_torch.ops.kmeans import kmeans
+    from rrnet_torch.serving import Predictor
+    from rrnet_torch.utils import convert
+    from rrnet_torch.utils.vis import TAB20, visualize
+
+    out = {"card": card}
+    cfg = config.rrnet_config()
+    hn.launches = 0                                          # counts to 0
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(cfg.seed))
+    sd = model.state_dict()
+    n_params = sum(p.numel() for p in model.parameters())
+    ref = convert.reference_state_dict(
+        lambda t: convert.detector_table(t, "rrnet", cfg.model.num_stacks),
+        sd)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rrnet_reference.pth")
+        torch.save({"model": {"module." + k: v for k, v in ref.items()}},
+                   path)
+        del ref
+        t0 = time.perf_counter()
+        loaded = convert.load_torch_state_dict(path)
+        converted, report = convert.convert_detector_params(
+            loaded, model="rrnet", num_stacks=cfg.model.num_stacks)
+        convert_s = time.perf_counter() - t0
+    if report["unexpected"]:
+        raise AssertionError(f"unexpected keys {report['unexpected'][:5]}")
+    other = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(cfg.seed + 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    other.load_state_dict(converted, strict=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bad = [k for k, v in other.state_dict().items()
+           if not torch.equal(v, sd[k])]
+    if bad:
+        raise AssertionError(f"converted tensors differ: {bad[:5]}")
+    frame = demo_frames(1)[0]["image"]
+    direct = Predictor(cfg, model, device="cuda").predict(frame)
+    via = Predictor(cfg, other, device="cuda").predict(frame)
+    if not np.array_equal(direct, via):
+        raise AssertionError("the converted checkpoint serves other "
+                             "detections")
+    check_detections(direct, cfg.model.stage2_rois, cfg.num_classes)
+    out["checkpoint"] = {"params": n_params, "tensors": len(converted),
+                         "convert_s": convert_s, "load_s": load_s,
+                         "rows": int(len(direct))}
+    print(f"  converted reference checkpoint: {n_params} params in "
+          f"{len(converted)} tensors, read and converted in {convert_s:.2f}"
+          f" s, loaded strictly in {load_s:.2f} s; {len(direct)} served "
+          f"rows bit-equal to the direct load ({card})", flush=True)
+    del converted, loaded, other
+
+    # (b) roi_jitter at full width
+    mean = np.asarray(cfg.val.mean, np.float32)
+    std = np.asarray(cfg.val.std, np.float32)
+    img = np.zeros((768, 1408, 3), np.float32)
+    img[:765, :1360] = (frame.astype(np.float32) / 255.0 - mean) / std
+    x = torch.from_numpy(img.transpose(2, 0, 1)[None].copy()).cuda()
+    r = cfg.model.stage2_rois
+    jit = torch.randn(1, r, 4, generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        plain = model(x)
+        jittered = model(x, roi_jitter=jit.cuda())
+        zero = model(x, roi_jitter=torch.zeros(1, r, 4, device="cuda"))
+        feat = torch.relu(model.backbone(x)[-1]).float()
+    if not torch.equal(jittered.rois, plain.rois + jit.cuda()):
+        raise AssertionError("jittered ROIs are not the ROIs + the jitter")
+    for a, b in zip(zero, plain):
+        for ta, tb in zip(a if isinstance(a, tuple) else (a,),
+                          b if isinstance(b, tuple) else (b,)):
+            if not torch.equal(ta, tb):
+                raise AssertionError("a zero roi_jitter changed an output")
+    moved = float((jittered.stage2_reg.float()
+                   - plain.stage2_reg.float()).abs().mean())
+    out["roi_jitter"] = {"sigma_feature_px": 1.0, "rois": r,
+                         "stage2_delta_mean_abs_change": moved}
+    print(f"  roi_jitter: {r} ROIs moved by the jitter exactly, zero "
+          f"jitter bit-equal, stage-2 deltas moved {moved:.4g} on mean "
+          f"({card})", flush=True)
+
+    # (c) DCNPooling at the reference defaults
+    pool = init_weights(DCNPooling(spatial_scale=0.25),
+                        torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        pool.fc3.weight.normal_(0.0, 0.01,
+                                generator=torch.Generator().manual_seed(4))
+    b_idx = torch.zeros(r, 1, device="cuda")
+    rois = torch.cat([b_idx, plain.rois[0] * 4.0], 1)
+    with torch.no_grad():
+        want = pool(feat.cpu(), rois.cpu())
+        pool.cuda()
+        got = pool(feat, rois)
+        err = float((got.cpu() - want).abs().max())
+        ms = cuda_ms(lambda: pool(feat, rois), reps=10)
+    if not err <= 1e-4:
+        raise AssertionError(f"DCNPooling on the card is {err} from the CPU")
+    out["dcn_pooling"] = {"feat": list(feat.shape), "rois": r,
+                          "max_abs_err_vs_cpu": err, "ms": ms}
+    print(f"  DCNPooling {list(feat.shape)} x {r} ROIs: {ms:.3f} ms a call, "
+          f"{err:.3g} from the CPU ({card})", flush=True)
+    del feat, pool
+
+    # (d) k-means of the synthetic set's GT sizes
+    root = make_synth_dataset(os.path.join(HERE, "build", "ref_tools_synth"),
+                              n_train=32, n_val=8, seed=219)
+    ann = os.path.join(root, "train", "annotations")
+    wh = np.concatenate([parse_annotation_file(os.path.join(ann, f))[:, 2:4]
+                         for f in sorted(os.listdir(ann))]).astype(np.float32)
+    priors = {}
+    for axis, name in ((1, "heights"), (0, "widths")):
+        col = torch.from_numpy(wh[:, axis:axis + 1].copy())
+        c_cpu, a_cpu = kmeans(col, 3, seed=0)
+        col_cuda = col.cuda()
+        c_gpu, a_gpu = kmeans(col_cuda, 3, seed=0)
+        if not torch.equal(a_gpu.cpu(), a_cpu) or not np.allclose(
+                c_gpu.cpu().numpy(), c_cpu.numpy(), rtol=1e-5, atol=0):
+            raise AssertionError(f"k-means {name}: the card differs")
+        priors[name] = sorted(float(v) for v in c_gpu.cpu().ravel())
+        priors[name + "_ms"] = cuda_ms(lambda: kmeans(col_cuda, 3, seed=0),
+                                       reps=5)
+    out["kmeans"] = {"boxes": int(len(wh)), "k": 3, **priors}
+    print(f"  k-means over {len(wh)} GT boxes: heights {priors['heights']}"
+          f", widths {priors['widths']}; {priors['heights_ms']:.2f} ms a "
+          f"call on the card, equal to the CPU ({card})", flush=True)
+
+    # (e) visualize the served detections
+    blank = np.zeros_like(frame)
+    drawn = visualize(blank, direct)
+    if drawn.shape != (frame.shape[0] + 14,) + frame.shape[1:]:
+        raise AssertionError(f"visualize gave {drawn.shape}")
+    oracle = np.zeros_like(frame)
+    h, w = frame.shape[:2]
+    for row in direct:
+        x0, y0 = int(row[0]), int(row[1])
+        ys, xs = rect_oracle(h, w, (x0, y0), (int(row[0] + row[2]),
+                                              int(row[1] + row[3])))
+        oracle[ys, xs] = TAB20[int(row[5]) % len(TAB20)]
+    if not np.array_equal(drawn[:h], oracle):
+        raise AssertionError("visualize's boxes differ from the oracle")
+    out["visualize"] = {"shape": list(drawn.shape), "boxes": int(len(direct)),
+                        "box_pixels": int((oracle.sum(-1) > 0).sum())}
+    torch.cuda.synchronize()
+    out["hard_nms_launches"] = hn.launches                   # just after
+    print(f"  visualize: {drawn.shape}, {len(direct)} boxes equal to the "
+          f"oracle; {hn.launches} hard-NMS launches in the phase ({card})",
+          flush=True)
+    return out
+
+
+
 def main(argv=None) -> int:
     import argparse
     from pathlib import Path
@@ -5053,6 +5257,13 @@ def main(argv=None) -> int:
     hard["data_parallel_launches"] = dp_launches["hard_nms"]
     classes["data_parallel_launches"] = dp_launches["soft_nms_classes"]
 
+    phase("reference tools path")
+    t0 = time.perf_counter()
+    ref_tools = run_reference_tools(torch, hn, card)
+    ref_tools["seconds"] = time.perf_counter() - t0
+    print(f"  phase took {ref_tools['seconds']:.1f} s", flush=True)
+    hard["reference_tools_launches"] = ref_tools["hard_nms_launches"]
+
     print(json.dumps({"data": data}), flush=True)
     print(json.dumps({"eval_protocol": protocol}), flush=True)
     print(json.dumps({"retinanet": retina}), flush=True)
@@ -5060,6 +5271,7 @@ def main(argv=None) -> int:
     print(json.dumps({"int8": int8}), flush=True)
     print(json.dumps({"microbatching": batching}), flush=True)
     print(json.dumps({"data_parallel": data_parallel}), flush=True)
+    print(json.dumps({"reference_tools": ref_tools}), flush=True)
     print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard,
                                   int8_conv, int8_pack]}), flush=True)
     print(card, flush=True)

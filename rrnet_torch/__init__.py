@@ -51,5 +51,11 @@ with the windowed self-attention of `models.modules`); every backbone
 of the JAX registry (`models.backbones.get_backbone`); and data-parallel
 training with SyncBN over `torch.distributed` (`parallel`,
 `train.Trainer(group=...)`, the train CLI's `--multihost`, the eval
-CLI's `--data-parallel`).
+CLI's `--data-parallel`); and the rest of the JAX package's surface:
+reference-checkpoint converters (`utils.convert`), `roi_jitter`,
+`models.layers.ResidualBlock`, anchor k-means (`ops.kmeans`, `python -m
+rrnet_torch.scripts.kmeans`), drawing (`utils.vis`, the train CLI's
+`--log-images`), `models.modules.DCNPooling`, and the stage-2 ablation,
+dtype and long-train harnesses (`scripts.stage2_ablation`,
+`scripts.dtype_ap_delta`, `scripts.long_train_artifact`).
 """

@@ -18,8 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import (BatchNorm, Conv2d, ConvBN, Linear,
-                                       max_pool, stem_conv)
+from rrnet_torch.models.layers import (BatchNorm, ConvBN, Linear,
+                                       ResidualBlock, max_pool, stem_conv)
 
 
 def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
@@ -68,34 +68,14 @@ class SELayer(nn.Module):
         return x * y[:, :, None, None]
 
 
-class HGResidual(nn.Module):
-    """3x3(s)-BN-relu-3x3-BN (-SE) with a 1x1(s)-BN skip when the shape
-    changes (reference hourglass.py:12-40, se_hourglass.py:30-60)."""
+class HGResidual(ResidualBlock):
+    """`layers.ResidualBlock`, with an `SELayer` after its second BN
+    where `se` (reference hourglass.py:12-40, se_hourglass.py:30-60)."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
                  se: bool = False, dtype=torch.float32):
-        super().__init__()
-        self.conv1 = Conv2d(cin, features, 3, stride, 1, bias=False,
-                            dtype=dtype)
-        self.bn1 = BatchNorm(features)
-        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False,
-                            dtype=dtype)
-        self.bn2 = BatchNorm(features)
-        self.se = SELayer(features, dtype=dtype) if se else None
-        if stride != 1 or cin != features:
-            self.skip_conv = Conv2d(cin, features, 1, stride, 0, bias=False,
-                                    dtype=dtype)
-            self.skip_bn = BatchNorm(features)
-        else:
-            self.skip_conv = None
-
-    def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        if self.se is not None:
-            out = self.se(out)
-        skip = x if self.skip_conv is None else self.skip_bn(self.skip_conv(x))
-        return F.relu(out + skip)
+        super().__init__(cin, features, stride, dtype=dtype,
+                         se=SELayer(features, dtype=dtype) if se else None)
 
 
 class Hourglass(nn.Module):

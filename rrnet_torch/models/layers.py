@@ -383,6 +383,40 @@ class ConvBN(nn.Module):
         return F.relu(x) if self.with_relu else x
 
 
+class ResidualBlock(nn.Module):
+    """Hourglass residual block (reference hourglass.py:12-40; the JAX
+    `layers.ResidualBlock`): 3x3(s)-BN-ReLU-3x3-BN, then `se` where one
+    is given (a channel-scaling module, as the SE hourglass's), and a
+    1x1(s)-BN skip when the stride or the width changes; ReLU of the sum.
+    Torch's conv init. Scopes: `conv1`, `bn1`, `conv2`, `bn2`,
+    `skip_conv`, `skip_bn` (and `se`)."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 dtype=torch.float32, se: Optional[nn.Module] = None):
+        super().__init__()
+        self.conv1 = Conv2d(cin, features, 3, stride, 1, bias=False,
+                            dtype=dtype)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False,
+                            dtype=dtype)
+        self.bn2 = BatchNorm(features)
+        self.se = se
+        if stride != 1 or cin != features:
+            self.skip_conv = Conv2d(cin, features, 1, stride, 0, bias=False,
+                                    dtype=dtype)
+            self.skip_bn = BatchNorm(features)
+        else:
+            self.skip_conv = None
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.se is not None:
+            out = self.se(out)
+        skip = x if self.skip_conv is None else self.skip_bn(self.skip_conv(x))
+        return F.relu(out + skip)
+
+
 class Bottleneck(nn.Module):
     """ResNet bottleneck, expansion 4, msra init (reference
     resnet.py:17-53)."""
@@ -439,6 +473,8 @@ class Linear(nn.Module):
             with torch.no_grad():
                 nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std,
                                       2 * std, generator=generator)
+        elif self.init == "zeros":
+            nn.init.zeros_(self.weight)
         else:
             torch_conv_init_(self.weight, fan_in, generator)
         if self.bias is not None:

@@ -1,6 +1,6 @@
-"""Shared model modules, NCHW (port of `rrnet_tpu/models/modules.py:30-132`):
-the 3-level FPN, the windowed `SelfAttentionModule`, and the bilinear
-resize that they and the Evaluator use.
+"""Shared model modules, NCHW (port of `rrnet_tpu/models/modules.py:30-200`):
+the 3-level FPN, the windowed `SelfAttentionModule`, `DCNPooling`, and
+the bilinear resize that they and the Evaluator use.
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import BatchNorm, Conv2d, max_pool
+from rrnet_torch.models.layers import BatchNorm, Conv2d, Linear, max_pool
+from rrnet_torch.ops.dcn import deform_psroi_pooling
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -130,3 +131,58 @@ class SelfAttentionModule(nn.Module):
             c = (tap(value, i, j) * sim[:, t:t + 1]).float()
             context = c if context is None else context + c
         return resize_bilinear(self.W(context.to(value.dtype)), in_hw)
+
+
+class DCNPooling(nn.Module):
+    """Deformable PSROI pooling with a learned per-ROI offset trunk
+    (reference ext/dcn/dcn_v2.py:223-303; the JAX package's `DCNPooling`).
+
+    A plain pass (`ops.dcn.deform_psroi_pooling` without offsets), then
+    an FC trunk `fc1`, `fc2` (flax's default Dense init, lecun-normal;
+    ReLU after each) and `fc3` (zero init, so a fresh module moves
+    nothing and its mask is sigmoid(0) = 0.5) on the pooled features
+    flattened in (C, ph, pw) order, giving per-bin (x, y) offsets and a
+    mask logit; then the pass again with the offsets, times the sigmoid
+    mask. `no_trans=True` is the plain pass alone. Plain PyTorch: the
+    JAX package computes it in XLA, not with a TPU kernel.
+
+    The JAX module pools every ROI against every image of the batch and
+    then picks each ROI's own; here each ROI is pooled on its own image
+    only (the batch index truncated and clipped to [0, B - 1]), which
+    gives the same result.
+
+    forward(feat (B, C, H, W), rois (R, 5) [batch index, x1, y1, x2,
+    y2]) -> (R, output_dim, p, p).
+    """
+
+    def __init__(self, spatial_scale: float = 1.0, pooled_size: int = 7,
+                 output_dim: int = 256, no_trans: bool = False,
+                 group_size: int = 1, part_size: Optional[int] = None,
+                 sample_per_part: int = 4, trans_std: float = 0.1,
+                 deform_fc_dim: int = 1024, dtype=torch.float32):
+        super().__init__()
+        self.kw = dict(spatial_scale=spatial_scale, pooled_size=pooled_size,
+                       output_dim=output_dim, group_size=group_size,
+                       part_size=part_size, sample_per_part=sample_per_part)
+        self.no_trans = no_trans
+        self.trans_std = trans_std
+        if not no_trans:
+            p = pooled_size
+            self.fc1 = Linear(output_dim * p * p, deform_fc_dim,
+                              init="lecun", dtype=dtype)
+            self.fc2 = Linear(deform_fc_dim, deform_fc_dim, init="lecun",
+                              dtype=dtype)
+            self.fc3 = Linear(deform_fc_dim, 3 * p * p, init="zeros",
+                              dtype=dtype)
+
+    def forward(self, feat: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
+        base = deform_psroi_pooling(feat, rois, None, **self.kw)
+        if self.no_trans:
+            return base
+        r, p = rois.shape[0], self.kw["pooled_size"]
+        x = F.relu(self.fc1(base.reshape(r, -1)))
+        x = F.relu(self.fc2(x))
+        x = self.fc3(x).reshape(r, 3, p, p)
+        out = deform_psroi_pooling(feat, rois, x[:, :2],
+                                   trans_std=self.trans_std, **self.kw)
+        return out * torch.sigmoid(x[:, 2:])

@@ -129,9 +129,14 @@ class RRNet(nn.Module):
                 torch.gather(classes, 1, idx), valid)
 
     def forward(self, x: torch.Tensor,
-                valid_hw: Optional[torch.Tensor] = None) -> RRNetOutputs:
+                valid_hw: Optional[torch.Tensor] = None,
+                roi_jitter: Optional[torch.Tensor] = None) -> RRNetOutputs:
         """x (B, 3, H, W); valid_hw optional (B, 2) int [h, w] image
-        extents inside a padded bucket (logits outside are masked)."""
+        extents inside a padded bucket (logits outside are masked).
+        roi_jitter: optional (B, R, 4) offsets in feature coordinates,
+        added (in the ROIs' dtype) to the selected ROIs before ROI-align:
+        the coarse-ROI ablation (`scripts/stage2_ablation.py`), for eval
+        only. The returned `rois` carry the jitter."""
         feats = self.backbone(x)
         hms, whs, offsets = [], [], []
         for i in range(self.num_stacks):
@@ -150,6 +155,8 @@ class RRNet(nn.Module):
         rois, roi_scores, roi_classes, roi_valid = self.select_rois(
             dets.boxes.contiguous(), dets.scores.contiguous(),
             dets.classes.contiguous())
+        if roi_jitter is not None:
+            rois = rois + roi_jitter.to(rois.dtype)
 
         last = F.relu(feats[-1])
         if self.training:

@@ -35,7 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from typing import Optional, Sequence
@@ -49,6 +48,7 @@ from rrnet_torch.data.synth import make_synth_dataset
 from rrnet_torch.evallib.infer import Evaluator
 from rrnet_torch.evallib.metrics import evaluate_results
 from rrnet_torch.train import Trainer
+from rrnet_torch.utils.device import device_record
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -62,17 +62,6 @@ DECODES = {"rrnet": (("rrnet", "full"),) + _RRNET_DECODES,
 STEPS = {"rrnet": 1600, "centernet": 400, "retinanet": 1600,
          "rrnet_hrnetv2_attention": 1600}
 METRICS = ("AP", "AP50", "AP75", "AR")
-
-
-def _card() -> Optional[str]:
-    """nvidia-smi's name and power limit of the card, where there is one."""
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60, check=True).stdout
-    except (OSError, subprocess.SubprocessError):
-        return None
-    return out.strip().splitlines()[0]
 
 
 def run(args) -> dict:
@@ -128,8 +117,7 @@ def run(args) -> dict:
     val_loader = ValLoader(cfg, split="val")
     gt_dir = os.path.join(args.dir, "val", "annotations")
     entry = {"family": family, "seed": cfg.seed,
-             "device": {"type": trainer.device.type, "card": _card(),
-                        "torch": torch.__version__},
+             "device": device_record(trainer.device),
              "train": {"steps": steps, "batch": args.batch,
                        "final_loss": total, "wall_s": train_s,
                        "wait_for_batches_s": wait,

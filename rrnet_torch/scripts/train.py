@@ -1,7 +1,8 @@
 """Training entry point (port of `scripts/train.py`):
 
     python -m rrnet_torch.scripts.train --config rrnet [--steps N]
-        [--resume DIR] [--device cuda|cpu] [--multihost] [key=value ...]
+        [--resume DIR] [--device cuda|cpu] [--multihost] [--log-images]
+        [key=value ...]
 
 e.g. `python -m rrnet_torch.scripts.train data_root=/data/VisDrone
 train.lr=1e-4`. Batches come from `data.loader.TrainLoader` through a
@@ -13,6 +14,13 @@ written to `{log_dir}/{log_prefix}/ckp-{step}` every
 the newest under a directory (or a `ckp-N` path) and goes on from its
 step, with the loader at the sample an uninterrupted run would draw
 next. One process on one card (or the CPU, for tests).
+
+`--log-images` adds, at each `print_interval`, the first image of the
+batch drawn twice (`utils.vis.visualize`) to the log under `imgs`: with
+the model's top-100 stage-1 detections above score 0.25 and with the
+ground truth, as RGB float images in [0, 1] (the reference's
+TensorBoard images). Only `rrnet` and `centernet` draw; other families
+log none.
 
 `--multihost` trains data-parallel, one process a rank, as `torchrun`
 starts them:
@@ -32,16 +40,69 @@ on every rank.
 from __future__ import annotations
 
 import argparse
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
+import numpy as np
+import torch
 import torch.distributed as dist
+from torch.func import functional_call
 
 from rrnet_torch import config as cfglib
 from rrnet_torch.data.loader import DevicePrefetcher, TrainLoader
+from rrnet_torch.data.transforms import denormalize
+from rrnet_torch.data.yuv420 import yuv420_to_rgb_host
+from rrnet_torch.ops.heatmap import topk_decode
 from rrnet_torch.parallel import create_group, init_from_env
 from rrnet_torch.train import Trainer
 from rrnet_torch.utils import checkpoint as ckpt
 from rrnet_torch.utils.logger import Logger
+from rrnet_torch.utils.vis import visualize
+
+
+def visualize_batch(trainer: Trainer, state, batch, cfg) -> List[np.ndarray]:
+    """The first image of `batch` with the state's predictions (eval
+    form: running BN statistics) and with its ground truth, as float
+    (H + 14, W, 3) images in [0, 1]; [] for a family without a heatmap
+    (the JAX train script's `_visualize_batch`, reference
+    operators/centernet_operator.py:120-141)."""
+    if cfg.model.name not in ("rrnet", "centernet"):
+        return []
+    img = np.asarray(torch.as_tensor(batch["images"])[0:1].cpu())
+    if img.ndim == 2:       # packed YUV 4:2:0 rows (train.transport)
+        h, w = cfg.train.crop_size
+        q = h * w // 4
+        y = img[:, :h * w].reshape(1, h, w)
+        uv = np.stack([img[:, h * w:h * w + q].reshape(1, h // 2, w // 2),
+                       img[:, h * w + q:].reshape(1, h // 2, w // 2)], -1)
+        img = yuv420_to_rgb_host(y, uv)
+    base = (img[0] if img.dtype == np.uint8 else
+            (np.clip(denormalize(img[0], cfg.train.mean, cfg.train.std),
+                     0, 1) * 255).astype(np.uint8))
+    model = trainer.model
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            outs = functional_call(model, state.state_dict(),
+                                   (trainer.normalise(img),))
+    finally:
+        model.train(was_training)
+    if cfg.model.name == "rrnet":
+        hm, wh, off = outs.hms[-1], outs.whs[-1], outs.offsets[-1]
+    else:
+        hm, wh, off = outs[0][-1], outs[1][-1], outs[2][-1]
+    dets = topk_decode(hm.float(), wh.float(), off.float(), k=100,
+                       scale_factor=float(cfg.train.scale_factor))
+    boxes = dets.boxes[0].cpu().numpy()
+    scores = dets.scores[0].cpu().numpy()
+    classes = dets.classes[0].cpu().numpy() + 1
+    keep = scores > 0.25
+    rows = np.concatenate([boxes[keep, :2], boxes[keep, 2:4] - boxes[keep, :2],
+                           scores[keep, None], classes[keep, None]], axis=1)
+    gt = (np.asarray(torch.as_tensor(batch["annos"])[0].cpu())
+          [np.asarray(torch.as_tensor(batch["valid"])[0].cpu())])
+    return [visualize(base, rows, with_score=True).astype(np.float32) / 255.0,
+            visualize(base, gt[:, :6]).astype(np.float32) / 255.0]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
@@ -60,6 +121,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--multihost", action="store_true",
                     help="one data-parallel rank of a torchrun launch")
+    ap.add_argument("--log-images", action="store_true",
+                    help="log prediction and ground-truth drawings at "
+                    "print_interval")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = ap.parse_args(argv)
 
@@ -111,9 +175,13 @@ def _train(cfg, args, device, group) -> Optional[str]:
                 for m in running:
                     for k, v in m.items():
                         sums[k] = sums.get(k, 0.0) + float(v)
-                logger.log({"scalar": {
+                log_data = {"scalar": {
                     f"train/{k}_loss" if k != "total" else "train/total_loss":
-                    v / len(running) for k, v in sums.items()}}, step)
+                    v / len(running) for k, v in sums.items()}}
+                if args.log_images:
+                    log_data["imgs"] = {"train": visualize_batch(
+                        trainer, state, batch, cfg)}
+                logger.log(log_data, step)
                 running = []
             if (step % cfg.train.checkpoint_interval ==
                     cfg.train.checkpoint_interval - 1

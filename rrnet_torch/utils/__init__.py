@@ -1,1 +1,2 @@
-"""Device policy, the CUDA kernel build and the flax weight converter."""
+"""Device policy, the CUDA kernel build, the flax weight converter, the
+reference-checkpoint converters, drawing, logging and checkpoints."""

@@ -100,6 +100,62 @@ def test_plain_matches_numpy_oracle(method):
     assert (rank[0][~keep[0]] == 100).all()
 
 
+NAN_CASE_BOXES = np.array([[0, 0, 10, 10], [1, 0, 11, 10], [0, 0, 10, 10],
+                           [50, 50, 60, 60]], np.float32)
+NAN_CASE_CLASSES = np.array([0, 0, 0, 1], np.int32)
+NAN_KW = dict(sigma=0.5, iou_threshold=0.3, score_threshold=0.001,
+              method="gaussian")
+
+
+@pytest.mark.parametrize("per_class", [False, True])
+def test_nan_score_stops_the_serial_routes(per_class):
+    """A fault of the JAX reference, pinned (ROADMAP C.14): one valid NaN
+    score stops the serial soft-NMS before its first pick, so nothing is
+    kept, class-agnostic or per class. The XLA route, the Pallas kernel
+    (interpret mode) and the port's plain B.1 agree on it."""
+    import jax.numpy as jnp
+    from rrnet_tpu.ops import nms as jnms
+    from rrnet_tpu.ops.pallas_nms import soft_nms_pallas
+    scores = np.array([0.9, np.nan, 0.5, 0.4], np.float32)
+    cls = NAN_CASE_CLASSES if per_class else None
+    _, keep, rank = port(NAN_CASE_BOXES[None], scores[None], None,
+                         None if cls is None else cls[None], **NAN_KW)
+    jc = None if cls is None else jnp.asarray(cls)
+    _, xkeep, _ = jnms.soft_nms(jnp.asarray(NAN_CASE_BOXES),
+                                jnp.asarray(scores), None, jc, **NAN_KW)
+    _, pkeep, _ = soft_nms_pallas(jnp.asarray(NAN_CASE_BOXES),
+                                  jnp.asarray(scores), None, jc,
+                                  per_class=per_class, interpret=True,
+                                  **NAN_KW)
+    assert keep[0].tolist() == [False] * 4
+    assert np.asarray(xkeep).tolist() == np.asarray(pkeep).tolist() \
+        == [False] * 4
+    assert (rank[0] == 4).all()
+
+
+def test_nan_coordinate_follows_the_pallas_route():
+    """A fault of the JAX reference, pinned (ROADMAP C.15): with box 1's
+    x1 NaN, JAX's XLA soft-NMS (its CPU route) makes that box's score NaN
+    and keeps 1 of 4, while its Pallas kernel (the TPU route) keeps all 4
+    ranked [0, 1, 3, 2]. The port follows the TPU route, bit for bit."""
+    import jax.numpy as jnp
+    from rrnet_tpu.ops import nms as jnms
+    from rrnet_tpu.ops.pallas_nms import soft_nms_pallas
+    boxes = NAN_CASE_BOXES.copy()
+    boxes[1, 0] = np.nan
+    scores = np.array([0.9, 0.8, 0.5, 0.4], np.float32)
+    ns, keep, rank = port(boxes[None], scores[None], **NAN_KW)
+    pns, pkeep, prank = (np.asarray(a) for a in soft_nms_pallas(
+        jnp.asarray(boxes), jnp.asarray(scores), interpret=True, **NAN_KW))
+    xns, xkeep, xrank = (np.asarray(a) for a in jnms.soft_nms(
+        jnp.asarray(boxes), jnp.asarray(scores), **NAN_KW))
+    assert keep[0].tolist() == pkeep.tolist() == [True] * 4
+    assert rank[0].tolist() == prank.tolist() == [0, 1, 3, 2]
+    np.testing.assert_array_equal(ns[0], pns)
+    assert xkeep.tolist() == [True, False, False, False]
+    assert np.isnan(xns[1]) and xrank.tolist() == [0, 4, 4, 4]
+
+
 def test_wrapper_rejects_non_cuda_devices():
     boxes, scores, _, _ = dets(1, 8, seed=1)
     with pytest.raises(ValueError):

@@ -231,6 +231,32 @@ def test_jax_partition_mishandles_out_of_range_ids():
                                  num_classes=10)
 
 
+def test_nan_score_drops_only_its_class():
+    """A fault of the JAX reference, pinned (ROADMAP C.14): a valid NaN
+    score stops the serial routes before their first pick
+    (tests/test_torch_soft_nms.py), but the class-parallel routes stop
+    only the NaN box's class: JAX's B.2 (interpret mode) and the port's
+    plain version both keep the class-1 box alone, with the NaN score
+    passed through and ranks [4, 4, 4, 0]."""
+    import jax.numpy as jnp
+    from rrnet_tpu.ops.pallas_nms import soft_nms_pallas_classes
+    boxes = np.array([[0, 0, 10, 10], [1, 0, 11, 10], [0, 0, 10, 10],
+                      [50, 50, 60, 60]], np.float32)
+    scores = np.array([0.9, np.nan, 0.5, 0.4], np.float32)
+    cls = np.array([0, 0, 0, 1], np.int32)
+    kw = dict(num_classes=2, sigma=0.5, iou_threshold=0.3,
+              score_threshold=0.001, method="gaussian")
+    ns, keep, rank = (a[0].numpy() for a in tsn.soft_nms_classes_reference(
+        t(boxes[None]), t(scores[None]), None, t(cls[None]), **kw))
+    jns, jkeep, jrank = (np.asarray(a) for a in soft_nms_pallas_classes(
+        jnp.asarray(boxes), jnp.asarray(scores), None, jnp.asarray(cls),
+        interpret=True, **kw))
+    assert keep.tolist() == jkeep.tolist() == [False, False, False, True]
+    assert rank.tolist() == jrank.tolist() == [4, 4, 4, 0]
+    np.testing.assert_array_equal(ns, jns)
+    assert np.isnan(ns[1])
+
+
 def test_empty_batch_and_zero_k():
     for shape in ((0, 5), (2, 0)):
         b = torch.zeros(shape + (4,))
