@@ -67,6 +67,7 @@ from rrnet_torch.models.modules import resize_bilinear
 from rrnet_torch.models.rrnet import mask_heatmap_extent
 from rrnet_torch.ops.box import decode_boxes
 from rrnet_torch.ops.heatmap import topk_decode
+from rrnet_torch.utils import tracing
 from rrnet_torch.utils.device import resolve_device
 
 
@@ -166,6 +167,8 @@ class Evaluator:
         self._tight_cache: Dict[Tuple[int, int], Tuple[int, int]] = {}
         self._anchors: Dict[Tuple[int, int], torch.Tensor] = {}
         self._pad_scratch: Dict[Tuple, np.ndarray] = {}
+        self._shapes_run: set = set()   # input shapes dispatched so far
+        self._batch_seq = 0             # the next batch id of evaluate_split
         self._replicas = [self] + [
             Evaluator(cfg, copy.deepcopy(self.model), device=d,
                       bucket_multiple=bucket_multiple,
@@ -335,19 +338,21 @@ class Evaluator:
             scr = np.zeros((len(images), th, tw, 3), np.uint8)
             self._pad_scratch[key] = scr
         padded = scr[:len(images)]
-        for i, im in enumerate(images):
-            if im.dtype != np.uint8:
-                im = np.clip(im * 255.0, 0, 255).astype(np.uint8)
-            padded[i, :im.shape[0], :im.shape[1]] = im
-            if im.shape[0] < th:
-                padded[i, im.shape[0]:] = padded[i, im.shape[0] - 1]
-            if im.shape[1] < tw:
-                padded[i, :, im.shape[1]:] = \
-                    padded[i, :, im.shape[1] - 1][:, None]
-        if self.transport == "yuv420":
-            flat = pack_yuv420(padded)
-        else:
-            flat = padded.reshape(len(images), -1)
+        with tracing.span("eval.stage.pad"):
+            for i, im in enumerate(images):
+                if im.dtype != np.uint8:
+                    im = np.clip(im * 255.0, 0, 255).astype(np.uint8)
+                padded[i, :im.shape[0], :im.shape[1]] = im
+                if im.shape[0] < th:
+                    padded[i, im.shape[0]:] = padded[i, im.shape[0] - 1]
+                if im.shape[1] < tw:
+                    padded[i, :, im.shape[1]:] = \
+                        padded[i, :, im.shape[1] - 1][:, None]
+        with tracing.span("eval.stage.pack"):
+            if self.transport == "yuv420":
+                flat = pack_yuv420(padded)
+            else:
+                flat = padded.reshape(len(images), -1)
         hws = list(zip(hs, ws))
         # one host buffer and one copy: the wire rows, then each image's
         # valid [h, w] as int32 (a row's bytes are a multiple of 4, since
@@ -355,12 +360,14 @@ class Evaluator:
         # pinned; the caching host allocator keeps the block until the
         # copy has finished, so the next batch cannot overwrite it
         n, row = flat.shape
-        buf = torch.empty(n * (row + 8), dtype=torch.uint8,
-                          pin_memory=self.device.type == "cuda")
-        host = buf.numpy()
-        host[:n * row] = flat.reshape(-1)
-        host[n * row:].view(np.int32)[:] = np.asarray(hws, np.int32).ravel()
-        wire = buf.to(self.device, non_blocking=True)
+        with tracing.span("eval.stage.copy"):
+            buf = torch.empty(n * (row + 8), dtype=torch.uint8,
+                              pin_memory=self.device.type == "cuda")
+            host = buf.numpy()
+            host[:n * row] = flat.reshape(-1)
+            host[n * row:].view(np.int32)[:] = \
+                np.asarray(hws, np.int32).ravel()
+            wire = buf.to(self.device, non_blocking=True)
         payload = wire[:n * row].view(n, row)
         valid_hw = wire[n * row:].view(torch.int32).view(n, 2)
         return StagedBatch(payload, (bh, bw), hws, (th, tw), valid_hw)
@@ -369,13 +376,14 @@ class Evaluator:
         """Ship a same-bucket list of images to the device(s): a
         StagedBatch, or with several replicas a ShardedBatch of contiguous
         slices (sizes differing by at most one, empty ones left out)."""
-        if len(self._replicas) == 1:
-            return self._upload(images)
-        cuts = np.cumsum([0] + [len(a) for a in np.array_split(
-            np.arange(len(images)), len(self._replicas))])
-        return ShardedBatch([(r, r._upload(images[a:b])) for r, a, b in
-                             zip(self._replicas, cuts[:-1], cuts[1:])
-                             if b > a])
+        with tracing.span("eval.stage"):
+            if len(self._replicas) == 1:
+                return self._upload(images)
+            cuts = np.cumsum([0] + [len(a) for a in np.array_split(
+                np.arange(len(images)), len(self._replicas))])
+            return ShardedBatch([(r, r._upload(images[a:b])) for r, a, b in
+                                 zip(self._replicas, cuts[:-1], cuts[1:])
+                                 if b > a])
 
     def _scaled_shape(self, bucket: Tuple[int, int], scale: float
                       ) -> Tuple[int, int]:
@@ -387,14 +395,15 @@ class Evaluator:
         """Queue the device work of every (scale, flip) program for a
         same-bucket batch (a list of HWC uint8 images, or what `stage`
         made of one); returns a handle for `collect`."""
-        if len(self._replicas) > 1:
-            parts = images if isinstance(images, ShardedBatch) else \
-                self.stage(images)
-            if self.quantize is not None and self._quant_scales is None:
-                self.calibrate(parts)   # lazily, on the first batch
-            return ShardedBatch([(r, r._dispatch(st))
-                                 for r, st in parts.parts])
-        return self._dispatch(images)
+        with tracing.span("eval.dispatch"):
+            if len(self._replicas) > 1:
+                parts = images if isinstance(images, ShardedBatch) else \
+                    self.stage(images)
+                if self.quantize is not None and self._quant_scales is None:
+                    self.calibrate(parts)   # lazily, on the first batch
+                return ShardedBatch([(r, r._dispatch(st))
+                                     for r, st in parts.parts])
+            return self._dispatch(images)
 
     def _dispatch(self, images):
         cfg = self.cfg
@@ -414,8 +423,13 @@ class Evaluator:
                 ry = scaled[0] / staged.bucket[0]
                 rx = scaled[1] / staged.bucket[1]
                 for flip in flips:
-                    x, vhw = self._preprocess(staged, scaled, flip, base)
-                    pending.append((self._forward(x, vhw), flip, ry, rx))
+                    with tracing.span("eval.program", scale=scale):
+                        x, vhw = self._preprocess(staged, scaled, flip, base)
+                        pending.append((self._forward(x, vhw), flip, ry, rx))
+                    if x.shape not in self._shapes_run:
+                        # a shape cuDNN has not planned for in this process
+                        self._shapes_run.add(x.shape)
+                        tracing.count("eval.new_shapes")
         return pending, staged.hws
 
     def collect(self, handle) -> List[np.ndarray]:
@@ -423,10 +437,12 @@ class Evaluator:
         original pixels, sorted by score (stable); with
         `val.auto_test=False`, merged on the host first (`merge`), except
         for RetinaNet, whose rows the device already NMS'd."""
-        rows = self.gather(handle)
-        if self.cfg.val.auto_test or self.cfg.model.name == "retinanet":
-            return rows
-        return [self.merge(pred) for pred in rows]
+        with tracing.span("eval.collect"):
+            rows = self.gather(handle)
+            if self.cfg.val.auto_test or self.cfg.model.name == "retinanet":
+                return rows
+            with tracing.span("eval.merge"):
+                return [self.merge(pred) for pred in rows]
 
     def gather(self, handle) -> List[np.ndarray]:
         """Per image, the rows of every program of a dispatched batch in
@@ -436,27 +452,34 @@ class Evaluator:
             return [rows for r, h in handle.parts for rows in r.gather(h)]
         pending, hws = handle
         n = len(hws)
-        per_img: List[List[np.ndarray]] = [[] for _ in range(n)]
-        for packed, flip, ry, rx in pending:
-            packed = packed.cpu().numpy().astype(np.float64)
-            # a fused flip program returns 2n images: [0, n) unflipped,
-            # [n, 2n) flipped
-            for idx in range(packed.shape[0]):
-                b = idx % n
-                flipped = bool(flip) if flip != "both" else idx >= n
-                rows = packed[idx][packed[idx, :, 4] >= 0.0]
-                if flipped:
-                    # the scaled valid width, as preprocess rounds it
-                    w_s = float(np.ceil(np.float32(hws[b][1]) *
-                                        np.float32(rx)))
-                    rows[:, 0] = w_s - rows[:, 0] - rows[:, 2]
-                rows[:, [0, 2]] /= rx
-                rows[:, [1, 3]] /= ry
-                per_img[b].append(rows)
-        outs = []
-        for parts in per_img:
-            pred = np.concatenate(parts, axis=0)
-            outs.append(pred[np.argsort(-pred[:, 4], kind="stable")])
+        host = []
+        for packed, _, _, _ in pending:
+            # a blocking copy: it waits for all the work queued before it
+            with tracing.span("eval.copy"):
+                tracing.count("eval.d2h_syncs")
+                host.append(packed.cpu().numpy())
+        with tracing.span("eval.rows"):
+            per_img: List[List[np.ndarray]] = [[] for _ in range(n)]
+            for packed, (_, flip, ry, rx) in zip(host, pending):
+                packed = packed.astype(np.float64)
+                # a fused flip program returns 2n images: [0, n)
+                # unflipped, [n, 2n) flipped
+                for idx in range(packed.shape[0]):
+                    b = idx % n
+                    flipped = bool(flip) if flip != "both" else idx >= n
+                    rows = packed[idx][packed[idx, :, 4] >= 0.0]
+                    if flipped:
+                        # the scaled valid width, as preprocess rounds it
+                        w_s = float(np.ceil(np.float32(hws[b][1]) *
+                                            np.float32(rx)))
+                        rows[:, 0] = w_s - rows[:, 0] - rows[:, 2]
+                    rows[:, [0, 2]] /= rx
+                    rows[:, [1, 3]] /= ry
+                    per_img[b].append(rows)
+            outs = []
+            for parts in per_img:
+                pred = np.concatenate(parts, axis=0)
+                outs.append(pred[np.argsort(-pred[:, 4], kind="stable")])
         return outs
 
     def merge(self, pred: np.ndarray) -> np.ndarray:
@@ -487,8 +510,10 @@ class Evaluator:
         bucket into batches; a leftover batch is padded to `batch_size`
         with copies of its last image, whose outputs are dropped. Batch
         k+1 is uploaded on a thread while batch k computes, and batch k
-        is collected and written after batch k+1 is dispatched. Returns
-        the result dir."""
+        is collected and written after batch k+1 is dispatched. Each
+        batch gets the next id of this Evaluator's sequence, which the
+        spans of its read, upload, dispatch, collect and write carry
+        (`utils.tracing`). Returns the result dir."""
         result_dir = result_dir or self.cfg.val.result_dir
         os.makedirs(result_dir, exist_ok=True)
         style = ("centernet" if self.cfg.model.name == "centernet"
@@ -500,16 +525,31 @@ class Evaluator:
 
         uploader = ThreadPoolExecutor(max_workers=1)
         queues: Dict[Tuple[int, int], List] = {}
-        staged = []      # (upload future, names): transfer in progress
-        in_flight = []   # (handle, names): compute in progress
+        staged = []      # (upload future, names, batch id): in transfer
+        in_flight = []   # (handle, names, batch id): compute in progress
         done = 0
+
+        def stage(batch_id, imgs):
+            with tracing.batch(batch_id):
+                return self.stage(imgs)
+
+        def dispatch(entry):
+            fut, names, batch_id = entry
+            with tracing.batch(batch_id):
+                with tracing.span("eval.wait_upload"):
+                    upload = fut.result()
+                in_flight.append((self.dispatch_batch(upload), names,
+                                  batch_id))
 
         def drain(entry):
             nonlocal done
-            handle, names = entry
-            for name, pred in zip(names, self.collect(handle)):
-                save_result(os.path.join(result_dir, name + ".txt"), pred,
-                            style=style)
+            handle, names, batch_id = entry
+            with tracing.batch(batch_id):
+                preds = self.collect(handle)
+                with tracing.span("eval.write"):
+                    for name, pred in zip(names, preds):
+                        save_result(os.path.join(result_dir, name + ".txt"),
+                                    pred, style=style)
             done += len(names)
             if verbose:
                 print(f"\r[{done}]", end="", flush=True)
@@ -517,8 +557,7 @@ class Evaluator:
         def pump():
             """Advance the pipeline: upload -> compute -> collect."""
             while len(staged) > 1 or (staged and not in_flight):
-                fut, names = staged.pop(0)
-                in_flight.append((self.dispatch_batch(fut.result()), names))
+                dispatch(staged.pop(0))
                 if len(in_flight) > 1:
                     drain(in_flight.pop(0))
 
@@ -527,13 +566,20 @@ class Evaluator:
             imgs = [it["image"] for it in q]
             if pad_to and len(imgs) < pad_to:
                 imgs = imgs + [imgs[-1]] * (pad_to - len(imgs))
-            staged.append((uploader.submit(self.stage, imgs), names))
+            batch_id, self._batch_seq = self._batch_seq, self._batch_seq + 1
+            staged.append((uploader.submit(stage, batch_id, imgs), names,
+                           batch_id))
             pump()
 
         try:
+            items = iter(loader)
             count = 0
-            for item in loader:
-                if max_images is not None and count >= max_images:
+            while max_images is None or count < max_images:
+                # the read is counted in the batch that flushes next
+                with tracing.batch(self._batch_seq), \
+                        tracing.span("eval.read"):
+                    item = next(items, None)
+                if item is None:
                     break
                 count += 1
                 b = bucket_of(item["image"])
@@ -543,8 +589,7 @@ class Evaluator:
             for q in list(queues.values()):
                 flush(q, pad_to=batch_size)
             while staged:
-                fut, names = staged.pop(0)
-                in_flight.append((self.dispatch_batch(fut.result()), names))
+                dispatch(staged.pop(0))
             while in_flight:
                 drain(in_flight.pop(0))
         finally:

@@ -35,6 +35,7 @@ from torch import nn
 
 from rrnet_torch.models.backbones.hourglass import resize_nearest
 from rrnet_torch.models.layers import BatchNorm, Bottleneck, Conv2d
+from rrnet_torch.utils import tracing
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, oh: int,
@@ -66,10 +67,12 @@ class BasicBlock(nn.Module):
             self.down_conv = None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        skip = x if self.down_conv is None else self.down_bn(self.down_conv(x))
-        return F.relu(out + skip)
+        with tracing.span("backbone.block"):
+            out = F.relu(self.bn1(self.conv1(x)))
+            out = self.bn2(self.conv2(out))
+            skip = (x if self.down_conv is None
+                    else self.down_bn(self.down_conv(x)))
+            return F.relu(out + skip)
 
 
 class ConvBNRelu(nn.Module):
@@ -126,20 +129,21 @@ class StageModule(nn.Module):
                 xs[j] = getattr(self, f"branch{j}_block{b}")(xs[j])
         fused = []
         for i in range(self.n_out):
-            acc = None
-            for j in range(self.n):
-                if i == j:
-                    y = xs[j]
-                elif i < j:
-                    y = getattr(self, f"fuse{i}_{j}_bn")(
-                        getattr(self, f"fuse{i}_{j}_conv")(xs[j]))
-                    y = resize_nearest(y, *xs[i].shape[-2:])
-                else:
-                    y = xs[j]
-                    for k in range(i - j):
-                        y = getattr(self, f"fuse{i}_{j}_down{k}")(y)
-                acc = y if acc is None else acc + y
-            fused.append(F.relu(acc))
+            with tracing.span("backbone.fuse"):
+                acc = None
+                for j in range(self.n):
+                    if i == j:
+                        y = xs[j]
+                    elif i < j:
+                        y = getattr(self, f"fuse{i}_{j}_bn")(
+                            getattr(self, f"fuse{i}_{j}_conv")(xs[j]))
+                        y = resize_nearest(y, *xs[i].shape[-2:])
+                    else:
+                        y = xs[j]
+                        for k in range(i - j):
+                            y = getattr(self, f"fuse{i}_{j}_down{k}")(y)
+                    acc = y if acc is None else acc + y
+                fused.append(F.relu(acc))
         return fused
 
 

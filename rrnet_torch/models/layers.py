@@ -52,6 +52,7 @@ from torch.nn.modules.utils import _pair
 
 from rrnet_torch.ops import int8_conv
 from rrnet_torch.parallel.mesh import all_mean
+from rrnet_torch.utils import tracing
 
 
 @contextlib.contextmanager
@@ -409,12 +410,14 @@ class ResidualBlock(nn.Module):
             self.skip_conv = None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        if self.se is not None:
-            out = self.se(out)
-        skip = x if self.skip_conv is None else self.skip_bn(self.skip_conv(x))
-        return F.relu(out + skip)
+        with tracing.span("backbone.block"):
+            out = F.relu(self.bn1(self.conv1(x)))
+            out = self.bn2(self.conv2(out))
+            if self.se is not None:
+                out = self.se(out)
+            skip = (x if self.skip_conv is None
+                    else self.skip_bn(self.skip_conv(x)))
+            return F.relu(out + skip)
 
 
 class Bottleneck(nn.Module):
@@ -442,12 +445,13 @@ class Bottleneck(nn.Module):
             self.downsample_conv = None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        skip = (x if self.downsample_conv is None
-                else self.downsample_bn(self.downsample_conv(x)))
-        return F.relu(out + skip)
+        with tracing.span("backbone.block"):
+            out = F.relu(self.bn1(self.conv1(x)))
+            out = F.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            skip = (x if self.downsample_conv is None
+                    else self.downsample_bn(self.downsample_conv(x)))
+            return F.relu(out + skip)
 
 
 class Linear(nn.Module):

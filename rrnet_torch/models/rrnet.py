@@ -14,7 +14,9 @@ regressor; for HRNetV2 that is its fourth map (320 channels), not stack
 train mode the last map is cast to f32 before ROI-align, so that its
 backward scatter-adds in f32. Gradients reach the wh and offset heads
 through the ROI coordinates, as in the JAX package; the NMS and the top-R
-choice run on detached tensors.
+choice run on detached tensors. The forward's stages are timed as the
+spans `rrnet.backbone`, `.attention`, `.heads`, `.decode`, `.nms`,
+`.roi_align` and `.stage2` (`utils.tracing`; off unless tracing is on).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from rrnet_torch.ops.heatmap import topk_decode, topk_desc
 from rrnet_torch.ops.hard_nms import hard_nms
 from rrnet_torch.ops.roi_align import roi_align
 from rrnet_torch.ops.soft_nms import soft_nms_auto
+from rrnet_torch.utils import tracing
 
 
 def mask_heatmap_extent(hm: torch.Tensor, valid_hw: torch.Tensor,
@@ -137,35 +140,44 @@ class RRNet(nn.Module):
         added (in the ROIs' dtype) to the selected ROIs before ROI-align:
         the coarse-ROI ablation (`scripts/stage2_ablation.py`), for eval
         only. The returned `rois` carry the jitter."""
-        feats = self.backbone(x)
+        with tracing.span("rrnet.backbone"):
+            feats = self.backbone(x)
         hms, whs, offsets = [], [], []
         for i in range(self.num_stacks):
             f = F.relu(feats[i])
             if self.with_attention:
-                f = f + getattr(self, f"attention{i}")(f)
-            hms.append(self.hm(f, i))
-            whs.append(self.wh(f, i))
-            offsets.append(self.offset(f, i))
+                with tracing.span("rrnet.attention"):
+                    f = f + getattr(self, f"attention{i}")(f)
+            with tracing.span("rrnet.heads"):
+                hms.append(self.hm(f, i))
+                whs.append(self.wh(f, i))
+                offsets.append(self.offset(f, i))
 
-        hm_last = hms[-1].float()
-        if valid_hw is not None:
-            hm_last = mask_heatmap_extent(hm_last, valid_hw, scale_factor=4)
-        dets = topk_decode(hm_last, whs[-1].float(), offsets[-1].float(),
-                           k=self.topk)
-        rois, roi_scores, roi_classes, roi_valid = self.select_rois(
-            dets.boxes.contiguous(), dets.scores.contiguous(),
-            dets.classes.contiguous())
+        with tracing.span("rrnet.decode"):
+            hm_last = hms[-1].float()
+            if valid_hw is not None:
+                hm_last = mask_heatmap_extent(hm_last, valid_hw,
+                                              scale_factor=4)
+            dets = topk_decode(hm_last, whs[-1].float(),
+                               offsets[-1].float(), k=self.topk)
+        with tracing.span("rrnet.nms"):
+            rois, roi_scores, roi_classes, roi_valid = self.select_rois(
+                dets.boxes.contiguous(), dets.scores.contiguous(),
+                dets.classes.contiguous())
         if roi_jitter is not None:
             rois = rois + roi_jitter.to(rois.dtype)
 
-        last = F.relu(feats[-1])
-        if self.training:
-            last = last.float()
-        last = last.permute(0, 2, 3, 1).contiguous()
-        roi_feat = roi_align(last, rois, output_size=(3, 3))  # (B, R, 3, 3, C)
-        b, r, _, _, c = roi_feat.shape
-        s2 = self.head_detector(
-            roi_feat.reshape(b * r, 3, 3, c).permute(0, 3, 1, 2))
+        with tracing.span("rrnet.roi_align"):
+            last = F.relu(feats[-1])
+            if self.training:
+                last = last.float()
+            last = last.permute(0, 2, 3, 1).contiguous()
+            # (B, R, 3, 3, C)
+            roi_feat = roi_align(last, rois, output_size=(3, 3))
+        with tracing.span("rrnet.stage2"):
+            b, r, _, _, c = roi_feat.shape
+            s2 = self.head_detector(
+                roi_feat.reshape(b * r, 3, 3, c).permute(0, 3, 1, 2))
         return RRNetOutputs(
             hms=tuple(hms), whs=tuple(whs), offsets=tuple(offsets),
             stage2_reg=s2.reshape(b, r, 4), rois=rois, roi_scores=roi_scores,

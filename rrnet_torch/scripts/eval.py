@@ -4,7 +4,7 @@ scripts/{RRNet,CTNet}/eval.py):
     python -m rrnet_torch.scripts.eval --config rrnet --ckpt log/TwoStageNet
         [--split val] [--max-images N] [--batch 4] [--no-score]
         [--quantize int8] [--data-parallel] [--device cuda|cpu]
-        [key=value ...]
+        [--trace-dir DIR] [key=value ...]
 
 Restores a checkpoint written by `python -m rrnet_torch.scripts.train`
 (`--ckpt` is a log directory, whose newest `ckp-N` is taken, or a
@@ -18,12 +18,17 @@ by default.
 protocol scale. `--data-parallel` splits each batch over every card of
 the process (`Evaluator(devices=...)`, one model replica a card; the
 CPU counts as one device), `--batch` rounded up to a multiple of their
-count.
+count. `--trace-dir DIR` runs the split under one torch.profiler session
+(`utils.tracing.profiled`) and writes `DIR/trace.json`, its Chrome trace
+(host operators, device kernels and the port's spans), and
+`DIR/spans.jsonl`, the spans and counters of the split
+(`utils.tracing`), one JSON record a line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import List, Optional, Sequence
 
@@ -36,6 +41,7 @@ from rrnet_torch.evallib.metrics import evaluate_results
 from rrnet_torch.models import build_model
 from rrnet_torch.train.state import create_train_state
 from rrnet_torch.utils import checkpoint as ckpt
+from rrnet_torch.utils import tracing
 
 
 def load_model(cfg: cfglib.Config, device: str, ckpt_path: Optional[str] = None,
@@ -89,6 +95,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     "multiple of their count")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--trace-dir", default=None,
+                    help="profile the split: write DIR/trace.json (Chrome "
+                    "trace) and DIR/spans.jsonl (the port's spans)")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = ap.parse_args(argv)
 
@@ -101,9 +110,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         batch = -(-batch // len(devices)) * len(devices)
     ev = Evaluator(cfg, model, device=args.device, quantize=args.quantize,
                    devices=devices)
-    result_dir = ev.evaluate_split(ValLoader(cfg, split=args.split),
-                                   max_images=args.max_images,
-                                   batch_size=batch)
+    with (tracing.profiled(args.trace_dir) if args.trace_dir
+          else contextlib.nullcontext()):
+        result_dir = ev.evaluate_split(ValLoader(cfg, split=args.split),
+                                       max_images=args.max_images,
+                                       batch_size=batch)
     scores = None
     if not args.no_score:
         gt_dir = os.path.join(cfg.data_root, args.split, "annotations")

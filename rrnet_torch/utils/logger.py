@@ -6,8 +6,8 @@ TensorBoard, every line mirrored to `{log_dir}/{prefix}/log.txt` and
 stdout with elapsed/ETA stamps. TensorBoard is optional: where
 `torch.utils.tensorboard` does not import, the logger writes text only,
 and training never depends on it. `start_trace`/`stop_trace` record a
-`torch.profiler` trace (host and, on a card, device activity) under the
-log directory.
+`torch.profiler` trace (host and, on a card, device activity) and the
+port's spans under the log directory (`utils.tracing.profiled`).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import os
 from typing import Dict
 
+from rrnet_torch.utils import tracing
 from rrnet_torch.utils.timer import Timer
 
 
@@ -70,22 +71,14 @@ class Logger:
     def start_trace(self):
         """Start a torch.profiler trace (CPU, and CUDA where a card is
         present); `stop_trace` writes it under `{log_dir}/profile/`."""
-        import torch
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        self._prof = torch.profiler.profile(activities=acts)
-        self._prof.start()
+        self._prof = tracing.profiled(
+            os.path.join(self.log_dir, "profile")).start()
 
     def stop_trace(self) -> str:
-        """Stop the trace and write it as a Chrome trace; returns its path."""
+        """Stop the trace and write it as a Chrome trace (`trace.json`,
+        beside the spans in `spans.jsonl`); returns its path."""
         prof, self._prof = self._prof, None
-        prof.stop()
-        out = os.path.join(self.log_dir, "profile")
-        os.makedirs(out, exist_ok=True)
-        path = os.path.join(out, "trace.json")
-        prof.export_chrome_trace(path)
-        return path
+        return prof.stop()
 
     def close(self):
         if self._txt is not None:

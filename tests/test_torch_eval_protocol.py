@@ -21,12 +21,14 @@ the converted weights of tests/test_torch_rrnet.py. Tolerances:
   * `auto_evaluate_results` over a 3x3 grid: AP, AP50, AP75, AR within
     1e-9; the auto-eval CLI's lines equal the JAX script's;
   * the eval CLI restores a train-CLI checkpoint; its files and AP equal
-    `evaluate_split` + `evaluate_results` on the same weights.
+    `evaluate_split` + `evaluate_results` on the same weights, with the
+    split profiled by `--trace-dir` (Chrome trace and spans written).
 """
 
 import contextlib
 import importlib.util
 import io
+import json
 import os
 import sys
 
@@ -364,7 +366,13 @@ def test_eval_cli_restores_a_train_checkpoint(trained, tmp_path):
     over = [f"data_root={data}", *TINY_TRAIN, "val.scales=(1.0,1.2)",
             "val.auto_test=False"]
     got = eval_cli.main(["--device", "cpu", "--ckpt", ckpt_dir, "--batch", "2",
+                         "--trace-dir", str(tmp_path / "trace"),
                          *over, f"val.result_dir={tmp_path / 'cli'}"])
+    # the operator's profile: the Chrome trace and the split's spans
+    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    with open(tmp_path / "trace" / "spans.jsonl") as f:
+        traced = {json.loads(line)["name"] for line in f}
+    assert {"eval.dispatch", "eval.collect", "rrnet.backbone"} <= traced
     cfg = tcfg.apply_overrides(tcfg.rrnet_config(), over)
     model, _ = load_model(cfg, "cpu", os.path.join(ckpt_dir, "ckp-2"))
     ref = TEvaluator(cfg, model, device="cpu").evaluate_split(
