@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from rrnet_torch.models.backbones.hourglass import resize_nearest
-from rrnet_torch.models.layers import BatchNorm, Bottleneck, Conv2d
+from rrnet_torch.models.layers import (BatchNorm, Bottleneck, Conv2d,
+                                       conv_bn)
 from rrnet_torch.utils import tracing
 
 
@@ -68,10 +69,10 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         with tracing.span("backbone.block"):
-            out = F.relu(self.bn1(self.conv1(x)))
-            out = self.bn2(self.conv2(out))
+            out = F.relu(conv_bn(self.conv1, self.bn1, x))
+            out = conv_bn(self.conv2, self.bn2, out)
             skip = (x if self.down_conv is None
-                    else self.down_bn(self.down_conv(x)))
+                    else conv_bn(self.down_conv, self.down_bn, x))
             return F.relu(out + skip)
 
 
@@ -87,7 +88,7 @@ class ConvBNRelu(nn.Module):
         self.relu = relu
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        x = conv_bn(self.conv, self.bn, x)
         return F.relu(x) if self.relu else x
 
 
@@ -135,8 +136,8 @@ class StageModule(nn.Module):
                     if i == j:
                         y = xs[j]
                     elif i < j:
-                        y = getattr(self, f"fuse{i}_{j}_bn")(
-                            getattr(self, f"fuse{i}_{j}_conv")(xs[j]))
+                        y = conv_bn(getattr(self, f"fuse{i}_{j}_conv"),
+                                    getattr(self, f"fuse{i}_{j}_bn"), xs[j])
                         y = resize_nearest(y, *xs[i].shape[-2:])
                     else:
                         y = xs[j]

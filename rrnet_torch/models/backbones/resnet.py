@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import BatchNorm, Bottleneck, Conv2d, max_pool
+from rrnet_torch.models.layers import (BatchNorm, Bottleneck, Conv2d,
+                                       conv_bn, max_pool)
 
 
 class ResNet(nn.Module):
@@ -45,7 +46,7 @@ class ResNet(nn.Module):
             self.stages.append(names)
 
     def forward(self, x: torch.Tensor):
-        x = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        x = max_pool(F.relu(conv_bn(self.conv1, self.bn1, x)), 3, 2, 1)
         outs = []
         for names in self.stages:
             for name in names:

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import BatchNorm, Conv2d, max_pool
+from rrnet_torch.models.layers import BatchNorm, Conv2d, conv_bn, max_pool
 
 STAGE_CHANNELS = {
     "0.5x": (24, 48, 96, 192, 1024),
@@ -48,7 +48,7 @@ class ConvBNRelu(nn.Module):
         self.relu = relu
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        x = conv_bn(self.conv, self.bn, x)
         return F.relu(x) if self.relu else x
 
 

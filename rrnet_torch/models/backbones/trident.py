@@ -26,8 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import (BatchNorm, Conv2d, conv2d, max_pool,
-                                       msra_init_)
+from rrnet_torch.models.layers import (BatchNorm, Conv2d, conv2d, conv_bn,
+                                       max_pool, msra_init_)
 from rrnet_torch.ops.deform_conv import deform_conv2d
 
 
@@ -142,7 +142,7 @@ class BottleneckV2(nn.Module):
         out = self.conv2(F.relu(self.bn2(out)))
         out = self.conv3(F.relu(self.bn3(out)))
         residual = (x if self.down_conv is None
-                    else self.down_bn(self.down_conv(x)))
+                    else conv_bn(self.down_conv, self.down_bn, x))
         return out + residual
 
 
@@ -190,7 +190,7 @@ class TridentResNet(nn.Module):
         return x
 
     def forward(self, x):
-        x = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        x = max_pool(F.relu(conv_bn(self.conv1, self.bn1, x)), 3, 2, 1)
         l1 = self._stage("layer1", self.layers[0], x)
         l2 = self._stage("layer2", self.layers[1], l1)
         t = self.layer3_0(l2)

@@ -23,6 +23,21 @@ convolution at f32 precision in its forward and its backward, whatever
 the caller's global TF32 setting (PyTorch lets cuDNN take TF32 for f32
 convolutions by default).
 
+A conv that feeds a BN runs through `conv_bn(conv, bn, x)`. Where the BN
+is in eval mode, no gradient is wanted (grad mode off, or no parameter
+of the pair requires one) and no quant context is active, the pair is
+one convolution: the BN's eval affine (mul, add) is folded in the
+parameters' dtype into the conv's weight (w * mul per output channel)
+and bias (add, plus bias * mul), each rounded once to the conv's
+dtype. Elsewhere it is `bn(conv(x))`. The folded weight and bias, and
+under the same conditions a lone conv's weight and bias cast to its
+dtype, are kept on the `Conv2d` (`Conv2d.eval_weights`) and made again
+when the data pointer or version counter of a tensor they come from
+changes: a `load_state_dict`, an in-place update (of the flat tensor
+whose views are the Trainer's parameters, too), a move. The counters
+`conv_bn.folded`, `conv_bn.unfolded` and `conv_bn.fold_builds`
+(`utils.tracing`) count the pairs run each way and the folds made.
+
 int8 post-training quantization (port of layers.py:40-110 and the int8
 branch of its `Conv2d`) is a mode, not a change of the parameters:
 `quant_context(mode, scales)` sets a context variable that `Conv2d`
@@ -196,11 +211,29 @@ def name_quant_convs(model: nn.Module) -> nn.Module:
 
 
 def drop_int8_weights(model: nn.Module) -> None:
-    """Forget every `Conv2d`'s quantized and packed weight (a weight swap
-    through `load_state_dict` is also noticed by its version counter)."""
+    """Forget every `Conv2d`'s quantized and packed weight, and its eval
+    weight and bias (a weight swap through `load_state_dict` is also
+    noticed by the version counters)."""
     for m in model.modules():
         if isinstance(m, Conv2d):
             m._int8 = None
+            m._eval = None
+
+
+def _wants_grad(*params) -> bool:
+    return torch.is_grad_enabled() and any(
+        p is not None and p.requires_grad for p in params)
+
+
+def _versions(tensors) -> Optional[tuple]:
+    """The (data pointer, version) of each tensor (None for an absent
+    one), or None where one is an inference tensor, which keeps no
+    version counter."""
+    try:
+        return tuple(None if t is None else (t.data_ptr(), t._version)
+                     for t in tensors)
+    except RuntimeError:
+        return None
 
 
 class Conv2d(nn.Module):
@@ -230,6 +263,7 @@ class Conv2d(nn.Module):
         self.quantizable = quantizable
         self.quant_name: Optional[str] = None
         self._int8 = None       # (weight key, PackedWeight, {absmax: scale})
+        self._eval = None       # (key, weight, bias): `eval_weights`
         self.weight = nn.Parameter(torch.empty(cout, cin // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
@@ -259,9 +293,46 @@ class Conv2d(nn.Module):
                     prev, amax)
             elif q.scales is not None and q.scales.get(name, 0.0) > 0:
                 return self._int8_forward(x, float(q.scales[name]))
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
-                      self.stride, self.padding, self.dilation, self.groups)
+        if q is None and not self.training and not _wants_grad(self.weight,
+                                                               self.bias):
+            w, b = self.eval_weights()
+        else:
+            w = self.weight.to(self.dtype)
+            b = None if self.bias is None else self.bias.to(self.dtype)
+        return self.run(x, w, b)
+
+    def run(self, x, weight, bias):
+        """This conv's geometry on `x` in `dtype`, with the given weight
+        and bias (already in `dtype`)."""
+        return conv2d(x.to(self.dtype), weight, bias, self.stride,
+                      self.padding, self.dilation, self.groups)
+
+    def eval_weights(self, bn: Optional["BatchNorm"] = None):
+        """(weight, bias) in `dtype` for a forward without gradients; with
+        `bn`, its eval affine folded in (module docstring). Kept until a
+        tensor they come from changes."""
+        src = (self.weight, self.bias) if bn is None else (
+            self.weight, self.bias, bn.weight, bn.bias, bn.running_mean,
+            bn.running_var)
+        key = _versions(src)
+        if key is not None:
+            key += (self.weight.device, self.weight.dtype, self.dtype)
+            if self._eval is not None and self._eval[0] == key:
+                return self._eval[1], self._eval[2]
+        # plain tensors even inside inference mode, so that a cached
+        # weight may later be saved for the backward of an input's grad
+        with torch.inference_mode(False), torch.no_grad():
+            w, b = self.weight, self.bias
+            if bn is not None:
+                tracing.count("conv_bn.fold_builds")
+                mul, add = bn.affine(bn.running_mean)
+                w = w * mul[:, None, None, None]
+                b = add if b is None else add + b * mul
+            w = w.to(self.dtype)
+            b = None if b is None else b.to(self.dtype)
+        if key is not None:
+            self._eval = (key, w, b)
+        return w, b
 
     def pad4(self):
         """The padding per side: (top, bottom, left, right)."""
@@ -332,10 +403,15 @@ class BatchNorm(nn.Module):
             # in the same forward (they may share one flat tensor, as in
             # the Trainer's state) does not invalidate the saved tensor
             mean = mean.clone()
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        add = self.bias - mean * mul
+        mul, add = self.affine(mean)
         return (x * mul.to(x.dtype)[:, None, None]
                 + add.to(x.dtype)[:, None, None])
+
+    def affine(self, mean):
+        """The eval form's (mul, add) on the running statistics, `mean`
+        being `running_mean` or a copy of it."""
+        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return mul, self.bias - mean * mul
 
     def _train_forward(self, x):
         # statistics in at least f32, as flax's _compute_stats
@@ -353,6 +429,18 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
+
+
+def conv_bn(conv: Conv2d, bn: BatchNorm, x):
+    """`bn(conv(x))`; one folded convolution where `bn` is in eval mode,
+    no gradient is wanted and no quant context is active (module
+    docstring)."""
+    if (bn.training or current_quant() is not None
+            or _wants_grad(conv.weight, conv.bias, bn.weight, bn.bias)):
+        tracing.count("conv_bn.unfolded")
+        return bn(conv(x))
+    tracing.count("conv_bn.folded")
+    return conv.run(x, *conv.eval_weights(bn))
 
 
 def set_sync_group(model: nn.Module, group) -> nn.Module:
@@ -378,9 +466,10 @@ class ConvBN(nn.Module):
         self.with_relu = with_relu
 
     def forward(self, x):
-        x = self.conv(x)
-        if self.bn is not None:
-            x = self.bn(x)
+        if self.bn is None:
+            x = self.conv(x)
+        else:
+            x = conv_bn(self.conv, self.bn, x)
         return F.relu(x) if self.with_relu else x
 
 
@@ -411,12 +500,12 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         with tracing.span("backbone.block"):
-            out = F.relu(self.bn1(self.conv1(x)))
-            out = self.bn2(self.conv2(out))
+            out = F.relu(conv_bn(self.conv1, self.bn1, x))
+            out = conv_bn(self.conv2, self.bn2, out)
             if self.se is not None:
                 out = self.se(out)
             skip = (x if self.skip_conv is None
-                    else self.skip_bn(self.skip_conv(x)))
+                    else conv_bn(self.skip_conv, self.skip_bn, x))
             return F.relu(out + skip)
 
 
@@ -446,11 +535,12 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         with tracing.span("backbone.block"):
-            out = F.relu(self.bn1(self.conv1(x)))
-            out = F.relu(self.bn2(self.conv2(out)))
-            out = self.bn3(self.conv3(out))
+            out = F.relu(conv_bn(self.conv1, self.bn1, x))
+            out = F.relu(conv_bn(self.conv2, self.bn2, out))
+            out = conv_bn(self.conv3, self.bn3, out)
             skip = (x if self.downsample_conv is None
-                    else self.downsample_bn(self.downsample_conv(x)))
+                    else conv_bn(self.downsample_conv, self.downsample_bn,
+                                 x))
             return F.relu(out + skip)
 
 

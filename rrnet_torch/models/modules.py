@@ -11,7 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import BatchNorm, Conv2d, Linear, max_pool
+from rrnet_torch.models.layers import (BatchNorm, Conv2d, Linear, conv_bn,
+                                       max_pool)
 from rrnet_torch.ops.dcn import deform_psroi_pooling
 
 
@@ -98,10 +99,10 @@ class SelfAttentionModule(nn.Module):
                         init="zeros", dtype=dtype, quantizable=False)
 
     def _tower(self, x, name):
-        y = F.relu(getattr(self, f"{name}_bn1")(
-            getattr(self, f"{name}_conv1")(x)))
-        return F.relu(getattr(self, f"{name}_bn2")(
-            getattr(self, f"{name}_conv2")(y)))
+        y = F.relu(conv_bn(getattr(self, f"{name}_conv1"),
+                           getattr(self, f"{name}_bn1"), x))
+        return F.relu(conv_bn(getattr(self, f"{name}_conv2"),
+                              getattr(self, f"{name}_bn2"), y))
 
     def forward(self, x):
         in_hw = tuple(x.shape[-2:])
