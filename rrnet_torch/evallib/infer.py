@@ -6,7 +6,8 @@ One host->device transfer per batch, as uint8: images are padded on the
 host to a 16-rounded wire shape (sticky per bucket, so same-bucket
 requests reuse one shape), packed (planar I420 or raw RGB) and copied
 once from pinned memory. On the device, once a batch: unpack,
-edge-replicate pad to the bucket, normalize. Then per protocol scale
+normalize, edge-replicate pad to the bucket, into channels-last memory
+(the eval forward's layout). Then per protocol scale
 (`val.scales`) and flip: bilinear resize to the scaled bucket
 (`bucket * scale` rounded up to `bucket_multiple`), horizontal flip
 within each image's valid width, forward, decode, and one packed
@@ -52,7 +53,6 @@ from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from rrnet_torch.config import Config
 from rrnet_torch.data.yuv420 import pack_yuv420, unpack_yuv420_device
@@ -94,12 +94,13 @@ def _flip_valid_width(img: torch.Tensor, w_valid: torch.Tensor
                       ) -> torch.Tensor:
     """Flip only the first w_valid[b] columns of each (B, C, H, W) image
     horizontally, so the content stays left-aligned and the extent mask
-    still applies."""
+    still applies. The result has the image's memory layout."""
     w = img.shape[-1]
     xs = torch.arange(w, device=img.device)[None, :]
     wv = w_valid.to(img.device, torch.int64)[:, None]
     src = torch.where(xs < wv, wv - 1 - xs, xs)
-    return torch.gather(img, 3, src[:, None, None, :].expand(img.shape))
+    return torch.gather(img, 3, src[:, None, None, :].expand(img.shape),
+                        out=torch.empty_like(img))
 
 
 def scaled_valid_hw(valid_hw: torch.Tensor, bucket: Tuple[int, int],
@@ -161,9 +162,9 @@ class Evaluator:
         self.fuse_flip = fuse_flip
         self.transport = cfg.val.transport
         self.mean = torch.tensor(cfg.val.mean, dtype=torch.float32,
-                                 device=self.device)[:, None, None]
+                                 device=self.device)
         self.std = torch.tensor(cfg.val.std, dtype=torch.float32,
-                                device=self.device)[:, None, None]
+                                device=self.device)
         self._tight_cache: Dict[Tuple[int, int], Tuple[int, int]] = {}
         self._anchors: Dict[Tuple[int, int], torch.Tensor] = {}
         self._pad_scratch: Dict[Tuple, np.ndarray] = {}
@@ -178,7 +179,9 @@ class Evaluator:
 
     # ------------------------------------------------------------------
     def _normalize(self, staged: StagedBatch) -> torch.Tensor:
-        """Wire payload -> normalized (B, 3, bh, bw) f32 at the bucket."""
+        """Wire payload -> normalized (B, 3, bh, bw) f32 at the bucket, in
+        channels-last memory: the layout the whole eval forward keeps
+        (`models.layers`), decided here and nowhere after."""
         (bh, bw), (th, tw) = staged.bucket, staged.tight
         flat = staged.payload
         n = flat.shape[0]
@@ -186,13 +189,15 @@ class Evaluator:
             x = unpack_yuv420_device(flat, th, tw) / 255.0
         else:
             x = flat.reshape(n, th, tw, 3).float() / 255.0
-        x = x.permute(0, 3, 1, 2)
+        x = (x - self.mean) / self.std          # (B, th, tw, 3), contiguous
         if (th, tw) != (bh, bw):
             # edge-replicate, as the host pad: at scales > 1 the bilinear
             # resize samples ~1 px past the valid extent, and a zero band
             # would bleed -mean/std into the valid border
-            x = F.pad(x, (0, bw - tw, 0, bh - th), mode="replicate")
-        return (x - self.mean) / self.std
+            rows = torch.arange(bh, device=x.device).clamp_(max=th - 1)
+            cols = torch.arange(bw, device=x.device).clamp_(max=tw - 1)
+            x = x.index_select(1, rows).index_select(2, cols)
+        return x.permute(0, 3, 1, 2)
 
     def _preprocess(self, staged: StagedBatch, scaled: Tuple[int, int],
                     flip, base: Optional[torch.Tensor] = None):

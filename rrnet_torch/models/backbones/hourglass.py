@@ -33,13 +33,21 @@ def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.floor(pos * n_in / n_out).long()
 
 
+def _power_of_two_ratio(n_in: int, n_out: int) -> bool:
+    r, rem = divmod(n_out, n_in)
+    return rem == 0 and r & (r - 1) == 0
+
+
 def resize_nearest(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, oh, ow) by `jax.image.resize(method=
-    "nearest")`'s rule. At exactly 2x (every hourglass level of the
-    768x1408 bucket) it is duplication."""
+    "nearest")`'s rule. Where each axis grows by a power of two (every
+    hourglass level and HRNet fuse of a 128-rounded bucket) that rule is
+    i // r, which `F.interpolate`'s nearest computes exactly (its scale
+    1 / r is exact), in one pass that keeps the input's memory layout;
+    elsewhere, two index selects (NCHW out)."""
     h, w = x.shape[-2:]
-    if (oh, ow) == (2 * h, 2 * w):
-        return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    if _power_of_two_ratio(h, oh) and _power_of_two_ratio(w, ow):
+        return F.interpolate(x, size=(oh, ow), mode="nearest")
     return (x.index_select(-2, _nearest_index(h, oh, x.device))
             .index_select(-1, _nearest_index(w, ow, x.device)))
 

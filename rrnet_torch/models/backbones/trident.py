@@ -68,11 +68,14 @@ class SharedConv(nn.Module):
         outs = []
         for i, (x, d) in enumerate(zip(xs, self.dilations)):
             om = getattr(self, f"offset_mask{i}")(x)
+            # the CUDA kernels take NCHW tensors; in eval the maps come out
+            # channels-last from the cached weights (`Conv2d.eval_weights`)
             offset = om[:, :n_off].contiguous()
-            mask = torch.sigmoid(om[:, n_off:])
+            mask = torch.sigmoid(om[:, n_off:]).contiguous()
             outs.append(deform_conv2d(
-                x, self.weight, offset, mask, stride=self.stride, padding=d,
-                dilation=d, deformable_groups=self.deformable_groups))
+                x.contiguous(), self.weight, offset, mask, stride=self.stride,
+                padding=d, dilation=d,
+                deformable_groups=self.deformable_groups))
         return outs
 
 

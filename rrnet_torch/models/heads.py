@@ -72,6 +72,8 @@ class CenterNetHead(nn.Module):
         x = F.relu(getattr(self, f"conv{stack}")(x))
         out = getattr(self, f"out{stack}")
         w = out.weight[:, :, 0, 0].to(self.dtype)
+        # on the eval path's channels-last maps the permute is a view of
+        # contiguous (B*H*W, C) rows, so the product reads them in place
         return x.permute(0, 2, 3, 1) @ w.t() + out.bias.to(self.dtype)
 
 

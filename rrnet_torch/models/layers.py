@@ -1,4 +1,6 @@
-"""Building blocks (port of `rrnet_tpu/models/layers.py:113-419`), NCHW.
+"""Building blocks (port of `rrnet_tpu/models/layers.py:113-419`), on
+(N, C, H, W) tensors: NCHW memory in training, channels-last (NHWC)
+memory in the eval path.
 
 Parameters are f32 and are cast to the module's compute dtype on use,
 as flax's `promote_dtype` does. Modules allocate their parameters
@@ -31,7 +33,12 @@ parameters' dtype into the conv's weight (w * mul per output channel)
 and bias (add, plus bias * mul), each rounded once to the conv's
 dtype. Elsewhere it is `bn(conv(x))`. The folded weight and bias, and
 under the same conditions a lone conv's weight and bias cast to its
-dtype, are kept on the `Conv2d` (`Conv2d.eval_weights`) and made again
+dtype, are kept on the `Conv2d` (`Conv2d.eval_weights`), the weight in
+`torch.channels_last` memory. The eval input is channels-last too
+(`evallib.infer.Evaluator._normalize` makes it so), and each op of the
+body keeps its input's layout, so cuDNN runs every eval convolution in
+its native NHWC form, with no layout conversion before or after; an
+NCHW input to such a weight comes out channels-last. They are made again
 when the data pointer or version counter of a tensor they come from
 changes: a `load_state_dict`, an in-place update (of the flat tensor
 whose views are the Trainer's parameters, too), a move. The counters
@@ -308,9 +315,9 @@ class Conv2d(nn.Module):
                       self.padding, self.dilation, self.groups)
 
     def eval_weights(self, bn: Optional["BatchNorm"] = None):
-        """(weight, bias) in `dtype` for a forward without gradients; with
-        `bn`, its eval affine folded in (module docstring). Kept until a
-        tensor they come from changes."""
+        """(weight, bias) in `dtype` for a forward without gradients, the
+        weight channels-last; with `bn`, its eval affine folded in (module
+        docstring). Kept until a tensor they come from changes."""
         src = (self.weight, self.bias) if bn is None else (
             self.weight, self.bias, bn.weight, bn.bias, bn.running_mean,
             bn.running_var)
@@ -328,7 +335,7 @@ class Conv2d(nn.Module):
                 mul, add = bn.affine(bn.running_mean)
                 w = w * mul[:, None, None, None]
                 b = add if b is None else add + b * mul
-            w = w.to(self.dtype)
+            w = w.to(self.dtype, memory_format=torch.channels_last)
             b = None if b is None else b.to(self.dtype)
         if key is not None:
             self._eval = (key, w, b)

@@ -39,7 +39,8 @@ DELTA_STD = (0.1, 0.1, 0.2, 0.2)
 
 
 def _flatten(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(B, A*c, H, W) -> (B, H*W*A, c) in the NHWC reshape order."""
+    """(B, A*c, H, W) -> (B, H*W*A, c) in the NHWC reshape order: a view
+    where the map is channels-last (the eval path), a copy from NCHW."""
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, c)
 
 

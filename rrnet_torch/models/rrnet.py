@@ -171,6 +171,8 @@ class RRNet(nn.Module):
             last = F.relu(feats[-1])
             if self.training:
                 last = last.float()
+            # a view where the map is channels-last (the eval path); a
+            # copy from the NCHW map of training
             last = last.permute(0, 2, 3, 1).contiguous()
             # (B, R, 3, 3, C)
             roi_feat = roi_align(last, rois, output_size=(3, 3))
