@@ -25,7 +25,9 @@ Phases (any failure exits non-zero before the result line):
      routes (f32 on the CUDA cores, 3xTF32 on the tensor cores), the
      backward's two kernels apart; hard NMS also at RetinaNet's shape
      (B=4, K=1000, class-agnostic, thr 0.3, +1 extents, valid = score >
-     0.1, decoded anchors crowded in one window). `--before DIR` builds
+     0.1, decoded anchors crowded in one window); the conv epilogue at
+     the eval cells' main shapes (4x256x288x544 bf16 and others) against
+     its byte bound. `--before DIR` builds
      another version of the sources that DIR holds (the DCN trio,
      `soft_nms_classes.cu`, `soft_nms.cu`, `int8_conv.cu` with 5cd1773's
      C interface, `hard_nms.cu` with 0fe0581's: the wrapper's torch sort
@@ -2683,6 +2685,7 @@ def run_eval_protocol(torch, hn, sn, card, before_hard=None):
     from rrnet_torch.evallib import host_nms
     from rrnet_torch.evallib.infer import Evaluator
     from rrnet_torch.models import build_model
+    from rrnet_torch.ops import conv_epilogue as ce
     from rrnet_torch.profile_train import synthetic_batch
     from rrnet_torch.train import Trainer
 
@@ -2723,26 +2726,35 @@ def run_eval_protocol(torch, hn, sn, card, before_hard=None):
                       verbose=False)
     torch.cuda.synchronize()
     hn.launches = sn.launches = sn.classes_launches = 0    # count this run
+    ce.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ev.evaluate_split(frames, result_dir=os.path.join(tmp.name, "rr"),
                       batch_size=4, verbose=False)
     secs = time.perf_counter() - t0
     launches = hn.launches                                 # read just after
+    epilogue_launches = ce.launches
     other = sn.launches + sn.classes_launches
     peak = torch.cuda.max_memory_allocated()
     entry["rrnet_six_scales"] = {
         "images_per_s": 8 / secs, "hard_nms_launches": launches,
         "hard_nms_launches_per_batch": launches / 2,
+        "conv_epilogue_launches_per_batch": epilogue_launches / 2,
         "max_memory_allocated_gib": peak / 2**30}
     print(f"  rrnet, six scales, no flip, auto_test, 8 frames 765x1360 at "
           f"batch 4 on {card}: {8 / secs:.2f} images/s ({secs * 1e3:.1f} "
           f"ms, files written); hard_nms launches {launches} in 2 batches "
-          f"(want 12: one a scale a batch), soft-NMS launches {other}; "
+          f"(want 12: one a scale a batch), soft-NMS launches {other}, "
+          f"conv_epilogue launches {epilogue_launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
-    if launches != 6 * 2 or other:
+    want_epilogues = len(scales) * 2 * RRNET_EPILOGUES_PER_FORWARD
+    if (launches != 6 * 2 or other
+            or epilogue_launches != want_epilogues):
         raise AssertionError(f"eval protocol: {launches} hard_nms launches "
-                             f"(want 12), {other} soft-NMS launches (want 0)")
+                             f"(want 12), {other} soft-NMS launches (want 0), "
+                             f"{epilogue_launches} conv_epilogue launches "
+                             f"(want {want_epilogues}: every eval conv of "
+                             f"every scale through the kernel)")
     entry["rrnet_six_scales"]["hard_nms"] = hard_nms_on_traffic(
         torch, hn, "a six-scale batch's own candidates",
         lambda: ev.gather(ev.dispatch_batch(imgs)), len(scales), card,
@@ -3951,6 +3963,80 @@ def check_int8_conv(torch, rng, card, before=None):
             "at": "1x256x192x352 bf16 -> NHWC int8; no one PyTorch call "
                   "quantizes and transposes"}
     return conv, pack
+
+
+# (label, N, C, H, W, epilogue): the eval cells' conv outputs at scale 1.5
+# of the 768x1408 bucket (stride 4: 288x544), batch 4, bf16
+CONV_EPILOGUE_SHAPES = [
+    ("hourglass conv1: bias, relu", 4, 256, 288, 544, "relu"),
+    ("hourglass conv2: bias, + x, relu", 4, 256, 288, 544, "residual"),
+    ("hourglass 384-ch conv2 at stride 8: bias, + x, relu", 4, 384, 144,
+     272, "residual"),
+    ("HRNet branch 0 conv2: bias, + x, relu", 4, 40, 288, 544, "residual"),
+    ("a 10-ch conv, bias alone (the scalar path)", 4, 10, 288, 544, "bias"),
+]
+# the eval convs of one forward of the rrnet preset that finish with a
+# bias, a residual or a ReLU: its 163 folded conv-BN pairs and the 6 biased
+# towers of its two stacks' three heads (the `conv_epilogue.plain` count of
+# one forward on the CPU)
+RRNET_EPILOGUES_PER_FORWARD = 169
+
+
+def check_conv_epilogue(torch, card):
+    """`csrc/conv_epilogue.cu` against its plain version at the eval
+    cells' main shapes (`CONV_EPILOGUE_SHAPES`), bit-equal, then timed
+    beside its byte bound at 3.35 TB/s (y read and written, the residual
+    read once) and the plain version's time. Returns the kernels line."""
+    from rrnet_torch.ops import conv_epilogue as ce
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    for label, n, c, h, w, kind in CONV_EPILOGUE_SHAPES:
+        def draw(*shape):
+            return torch.randn(*shape, device=dev, generator=g).to(
+                torch.bfloat16)
+        y = draw(n, c, h, w).contiguous(memory_format=torch.channels_last)
+        b = draw(c)
+        r = (None if kind in ("relu", "bias") else
+             draw(n, c, h, w).contiguous(memory_format=torch.channels_last))
+        relu = kind != "bias"
+        want = ce.conv_epilogue_reference(y, b, r, relu)
+        got = ce.conv_epilogue(y.clone(), b, r, relu)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"conv_epilogue differs from its plain "
+                                 f"version at {label}")
+        del got, want
+        ms = cuda_ms(lambda: ce.conv_epilogue(y, b, r, relu), 20)
+        plain_ms = cuda_ms(
+            lambda: ce.conv_epilogue_reference(y, b, r, relu), 5)
+        nbytes = y.numel() * 2 * (2 if r is None else 3)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"at": label, "shape": [n, c, h, w], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_share": bound_ms / ms,
+               "tb_per_s": nbytes / ms / 1e9}
+        rows.append(row)
+        print(f"  conv_epilogue {label} {n}x{c}x{h}x{w} bf16 on {card}: "
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms), byte bound "
+              f"{bound_ms:.4f} ms at 3.35 TB/s: {100 * bound_ms / ms:.1f}% "
+              f"({nbytes / ms / 1e9:.3f} TB/s); bit-equal", flush=True)
+        del y, r
+    main = rows[0]
+    return {"name": "conv_epilogue", "route": "cuda",
+            "design": "in place on the channels-last conv output: 16-byte "
+                      "vectors (8 bf16 channels), 4 a thread loaded before "
+                      "any is stored, bias vectors from L1; a scalar path "
+                      "where C % 8 != 0",
+            "source": "rrnet_torch/csrc/conv_epilogue.cu",
+            "replaces": "not a TPU kernel: XLA fused the conv's BN affine, "
+                        "residual add and ReLU into its convolution",
+            "launches": None, "max_abs_err": 0.0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "at": f"{main['at']} at 4x256x288x544 bf16; no one PyTorch call "
+                  "adds a bias, a residual and takes the ReLU",
+            "shapes": rows}
 
 
 def int8_counts(torch):
@@ -5173,6 +5259,7 @@ def main(argv=None) -> int:
     hard = check_hard_nms(torch, hn, rng, card, before_hard)
     dcn_fwd, dcn_bwd = check_dcn(torch, rng, card, before_pair)
     int8_conv, int8_pack = check_int8_conv(torch, rng, card, before_i8)
+    epilogue = check_conv_epilogue(torch, card)
 
     phase("small-input reference")
     check_small_reference(torch)
@@ -5207,6 +5294,8 @@ def main(argv=None) -> int:
     protocol, hard["eval_protocol_launches"] = run_eval_protocol(
         torch, hn, sn, card, before_hard)
     hard["six_scale_batch"] = protocol["rrnet_six_scales"]["hard_nms"]
+    epilogue["launches"] = protocol["rrnet_six_scales"][
+        "conv_epilogue_launches_per_batch"]
     print(f"  phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("retinanet path")
@@ -5273,7 +5362,8 @@ def main(argv=None) -> int:
     print(json.dumps({"data_parallel": data_parallel}), flush=True)
     print(json.dumps({"reference_tools": ref_tools}), flush=True)
     print(json.dumps({"kernels": [soft, classes, dcn_fwd, dcn_bwd, hard,
-                                  int8_conv, int8_pack]}), flush=True)
+                                  int8_conv, int8_pack, epilogue]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

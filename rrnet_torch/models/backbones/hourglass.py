@@ -183,7 +183,7 @@ class HourglassNet(nn.Module):
                 cin = c0
 
     def forward(self, x) -> List[torch.Tensor]:
-        x = F.relu(conv_bn(self.pre_conv, self.pre_bn, x))
+        x = conv_bn(self.pre_conv, self.pre_bn, x, relu=True)
         pre_feat = self.pre_res(x)
         if self.pool_stem:
             pre_feat = max_pool(pre_feat, 2, 2, 0)

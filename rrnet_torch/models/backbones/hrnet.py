@@ -69,11 +69,11 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         with tracing.span("backbone.block"):
-            out = F.relu(conv_bn(self.conv1, self.bn1, x))
-            out = conv_bn(self.conv2, self.bn2, out)
+            out = conv_bn(self.conv1, self.bn1, x, relu=True)
             skip = (x if self.down_conv is None
                     else conv_bn(self.down_conv, self.down_bn, x))
-            return F.relu(out + skip)
+            return conv_bn(self.conv2, self.bn2, out, residual=skip,
+                           relu=True)
 
 
 class ConvBNRelu(nn.Module):
@@ -88,8 +88,7 @@ class ConvBNRelu(nn.Module):
         self.relu = relu
 
     def forward(self, x):
-        x = conv_bn(self.conv, self.bn, x)
-        return F.relu(x) if self.relu else x
+        return conv_bn(self.conv, self.bn, x, relu=self.relu)
 
 
 class StageModule(nn.Module):

@@ -16,7 +16,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from rrnet_torch.models.layers import (BatchNorm, Bottleneck, Conv2d,
@@ -46,7 +45,7 @@ class ResNet(nn.Module):
             self.stages.append(names)
 
     def forward(self, x: torch.Tensor):
-        x = max_pool(F.relu(conv_bn(self.conv1, self.bn1, x)), 3, 2, 1)
+        x = max_pool(conv_bn(self.conv1, self.bn1, x, relu=True), 3, 2, 1)
         outs = []
         for names in self.stages:
             for name in names:

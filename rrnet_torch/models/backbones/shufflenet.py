@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from rrnet_torch.models.layers import BatchNorm, Conv2d, conv_bn, max_pool
@@ -48,8 +47,7 @@ class ConvBNRelu(nn.Module):
         self.relu = relu
 
     def forward(self, x):
-        x = conv_bn(self.conv, self.bn, x)
-        return F.relu(x) if self.relu else x
+        return conv_bn(self.conv, self.bn, x, relu=self.relu)
 
 
 class InvertedResidual(nn.Module):

@@ -12,7 +12,6 @@ from __future__ import annotations
 from typing import Sequence, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from rrnet_torch.models.layers import (Bottleneck, Conv2d, Linear, conv2d,
@@ -69,7 +68,7 @@ class CenterNetHead(nn.Module):
 
     def forward(self, x, stack: int):
         """x (B, C, H, W) -> (B, H, W, planes)."""
-        x = F.relu(getattr(self, f"conv{stack}")(x))
+        x = getattr(self, f"conv{stack}")(x, relu=True)
         out = getattr(self, f"out{stack}")
         w = out.weight[:, :, 0, 0].to(self.dtype)
         # on the eval path's channels-last maps the permute is a view of
@@ -103,7 +102,7 @@ class CenterNetWHHead(nn.Module):
 
     def forward(self, x, stack: int):
         """x (B, C, H, W) -> (B, H, W, 2 * planes) [W0, H0, W1, H1, ...]."""
-        conv = F.relu(getattr(self, f"conv{stack}")(x))
+        conv = getattr(self, f"conv{stack}")(x, relu=True)
         hp = getattr(self, f"hconv{stack}")
         wp = getattr(self, f"wconv{stack}")
         h = conv2d(conv, hp.weight.to(self.dtype), hp.bias.to(self.dtype),
@@ -151,5 +150,5 @@ class RetinaNetHead(nn.Module):
     def forward(self, x):
         """x (B, C, H, W) -> (B, planes, H, W)."""
         for i in range(4):
-            x = F.relu(getattr(self, f"conv{i}")(x))
+            x = getattr(self, f"conv{i}")(x, relu=True)
         return self.out(x)

@@ -45,6 +45,20 @@ whose views are the Trainer's parameters, too), a move. The counters
 `conv_bn.folded`, `conv_bn.unfolded` and `conv_bn.fold_builds`
 (`utils.tracing`) count the pairs run each way and the folds made.
 
+Under the same conditions (`Conv2d.run_eval`), an eval convolution of a
+CUDA input runs without its bias, and one pass of `ops.conv_epilogue`
+over its output adds the bias, the block's residual where there is one
+and the ReLU where there is one, in place. cuDNN's convolution, grouped
+or not, adds its bias as a separate elementwise pass, so this equals the
+eager chain `relu(conv(x) + skip)` bit for bit. The channels-last weight
+makes the output channels-last; the kernel raises on an output or a
+residual laid out otherwise. `conv_bn` takes the residual and the ReLU
+as `residual=` and `relu=`, `Conv2d.forward` the ReLU; elsewhere
+(training, a quant context, the CPU, a gradient wanted, also through the
+input or the residual) the same arguments run those eager ops
+(`ops.conv_epilogue_reference`). The counters `conv_epilogue.kernel` and
+`conv_epilogue.plain` count the convs finished each way.
+
 int8 post-training quantization (port of layers.py:40-110 and the int8
 branch of its `Conv2d`) is a mode, not a change of the parameters:
 `quant_context(mode, scales)` sets a context variable that `Conv2d`
@@ -72,6 +86,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules.utils import _pair
 
+from rrnet_torch.ops import conv_epilogue as epilogue
 from rrnet_torch.ops import int8_conv
 from rrnet_torch.parallel.mesh import all_mean
 from rrnet_torch.utils import tracing
@@ -285,8 +300,14 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False):
+        """The conv, then the ReLU where asked; in the eval form (no
+        quant context, eval mode, no gradient wanted) through `run_eval`,
+        elsewhere as eager ops."""
         q = current_quant()
+        if q is None and not self.training and not _wants_grad(self.weight,
+                                                               self.bias):
+            return self.run_eval(x, *self.eval_weights(), relu=relu)
         if (q is not None and self.quantizable and self.groups == 1
                 and x.shape[1] >= q.min_channels):
             name = self.quant_name
@@ -299,20 +320,38 @@ class Conv2d(nn.Module):
                 q.stats[name] = amax if prev is None else torch.maximum(
                     prev, amax)
             elif q.scales is not None and q.scales.get(name, 0.0) > 0:
-                return self._int8_forward(x, float(q.scales[name]))
-        if q is None and not self.training and not _wants_grad(self.weight,
-                                                               self.bias):
-            w, b = self.eval_weights()
-        else:
-            w = self.weight.to(self.dtype)
-            b = None if self.bias is None else self.bias.to(self.dtype)
-        return self.run(x, w, b)
+                return _plain_tail(self._int8_forward(
+                    x, float(q.scales[name])), relu=relu,
+                    finished=self.bias is not None)
+        w = self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return _plain_tail(self.run(x, w, b), relu=relu,
+                           finished=b is not None)
 
     def run(self, x, weight, bias):
         """This conv's geometry on `x` in `dtype`, with the given weight
         and bias (already in `dtype`)."""
         return conv2d(x.to(self.dtype), weight, bias, self.stride,
                       self.padding, self.dilation, self.groups)
+
+    def run_eval(self, x, weight, bias, residual=None, relu: bool = False):
+        """The eval form of this conv (weight and bias from
+        `eval_weights`) and its epilogue: `+ residual` and the ReLU where
+        asked. On a CUDA input the convolution runs without its bias and
+        `ops.conv_epilogue` finishes it in one pass, raising on a layout
+        it does not take (module docstring); on the CPU, or where a
+        gradient flows through x or the residual, eager ops do."""
+        if not x.is_cuda:
+            return _plain_tail(self.run(x, weight, bias), None, residual,
+                               relu, finished=bias is not None)
+        y = self.run(x, weight, None)
+        if bias is None and residual is None and not relu:
+            return y
+        if y.requires_grad or (residual is not None
+                               and residual.requires_grad):
+            return _plain_tail(y, bias, residual, relu)
+        tracing.count("conv_epilogue.kernel")
+        return epilogue.conv_epilogue(y, bias, residual, relu)
 
     def eval_weights(self, bn: Optional["BatchNorm"] = None):
         """(weight, bias) in `dtype` for a forward without gradients, the
@@ -438,16 +477,29 @@ class BatchNorm(nn.Module):
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 
-def conv_bn(conv: Conv2d, bn: BatchNorm, x):
-    """`bn(conv(x))`; one folded convolution where `bn` is in eval mode,
-    no gradient is wanted and no quant context is active (module
-    docstring)."""
+def _plain_tail(y, bias=None, residual=None, relu: bool = False,
+                finished: bool = False):
+    """`relu(y + bias + residual)` as the eager ops of
+    `ops.conv_epilogue_reference`; counts `conv_epilogue.plain` where
+    there was anything to finish (`finished`: a bias or BN already
+    applied to y)."""
+    if finished or bias is not None or residual is not None or relu:
+        tracing.count("conv_epilogue.plain")
+    return epilogue.conv_epilogue_reference(y, bias, residual, relu)
+
+
+def conv_bn(conv: Conv2d, bn: BatchNorm, x, residual=None,
+            relu: bool = False):
+    """`bn(conv(x))`, then `+ residual` and the ReLU where asked; one
+    folded convolution with its epilogue (`Conv2d.run_eval`) where `bn`
+    is in eval mode, no gradient is wanted and no quant context is active
+    (module docstring)."""
     if (bn.training or current_quant() is not None
             or _wants_grad(conv.weight, conv.bias, bn.weight, bn.bias)):
         tracing.count("conv_bn.unfolded")
-        return bn(conv(x))
+        return _plain_tail(bn(conv(x)), None, residual, relu, finished=True)
     tracing.count("conv_bn.folded")
-    return conv.run(x, *conv.eval_weights(bn))
+    return conv.run_eval(x, *conv.eval_weights(bn), residual, relu)
 
 
 def set_sync_group(model: nn.Module, group) -> nn.Module:
@@ -474,10 +526,8 @@ class ConvBN(nn.Module):
 
     def forward(self, x):
         if self.bn is None:
-            x = self.conv(x)
-        else:
-            x = conv_bn(self.conv, self.bn, x)
-        return F.relu(x) if self.with_relu else x
+            return self.conv(x, relu=self.with_relu)
+        return conv_bn(self.conv, self.bn, x, relu=self.with_relu)
 
 
 class ResidualBlock(nn.Module):
@@ -507,13 +557,15 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         with tracing.span("backbone.block"):
-            out = F.relu(conv_bn(self.conv1, self.bn1, x))
-            out = conv_bn(self.conv2, self.bn2, out)
-            if self.se is not None:
-                out = self.se(out)
+            out = conv_bn(self.conv1, self.bn1, x, relu=True)
             skip = (x if self.skip_conv is None
                     else conv_bn(self.skip_conv, self.skip_bn, x))
-            return F.relu(out + skip)
+            if self.se is not None:
+                # the SE scale sits between conv2's bias and the add
+                return F.relu(self.se(conv_bn(self.conv2, self.bn2, out))
+                              + skip)
+            return conv_bn(self.conv2, self.bn2, out, residual=skip,
+                           relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -542,13 +594,13 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         with tracing.span("backbone.block"):
-            out = F.relu(conv_bn(self.conv1, self.bn1, x))
-            out = F.relu(conv_bn(self.conv2, self.bn2, out))
-            out = conv_bn(self.conv3, self.bn3, out)
+            out = conv_bn(self.conv1, self.bn1, x, relu=True)
+            out = conv_bn(self.conv2, self.bn2, out, relu=True)
             skip = (x if self.downsample_conv is None
                     else conv_bn(self.downsample_conv, self.downsample_bn,
                                  x))
-            return F.relu(out + skip)
+            return conv_bn(self.conv3, self.bn3, out, residual=skip,
+                           relu=True)
 
 
 class Linear(nn.Module):

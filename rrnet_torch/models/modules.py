@@ -99,10 +99,10 @@ class SelfAttentionModule(nn.Module):
                         init="zeros", dtype=dtype, quantizable=False)
 
     def _tower(self, x, name):
-        y = F.relu(conv_bn(getattr(self, f"{name}_conv1"),
-                           getattr(self, f"{name}_bn1"), x))
-        return F.relu(conv_bn(getattr(self, f"{name}_conv2"),
-                              getattr(self, f"{name}_bn2"), y))
+        y = conv_bn(getattr(self, f"{name}_conv1"),
+                    getattr(self, f"{name}_bn1"), x, relu=True)
+        return conv_bn(getattr(self, f"{name}_conv2"),
+                       getattr(self, f"{name}_bn2"), y, relu=True)
 
     def forward(self, x):
         in_hw = tuple(x.shape[-2:])

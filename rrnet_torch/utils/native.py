@@ -31,12 +31,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name: (source, extra flags). -fmad=false and no fast math for a kernel
 # that mirrors its plain PyTorch version bit for bit, rounding op by op as
 # it does (see csrc/soft_nms.cu, csrc/soft_nms_classes.cu,
-# csrc/hard_nms.cu, csrc/int8_conv.cu); the DCN kernels are compared
-# within a tolerance and may contract multiply-adds.
+# csrc/hard_nms.cu, csrc/int8_conv.cu, csrc/conv_epilogue.cu); the DCN
+# kernels are compared within a tolerance and may contract multiply-adds.
 SOURCES = {"soft_nms": ("soft_nms.cu", ["-fmad=false"]),
            "soft_nms_classes": ("soft_nms_classes.cu", ["-fmad=false"]),
            "hard_nms": ("hard_nms.cu", ["-fmad=false"]),
            "int8_conv": ("int8_conv.cu", ["-fmad=false"]),
+           "conv_epilogue": ("conv_epilogue.cu", ["-fmad=false"]),
            "dcn_fwd": ("dcn_fwd.cu", []),
            "dcn_bwd": ("dcn_bwd.cu", [])}
 # Host libraries, built by CXX with HOST_FLAGS: the JAX package's flags

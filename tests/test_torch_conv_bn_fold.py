@@ -32,6 +32,7 @@ from rrnet_torch.models.backbones.hrnetv2 import HRNetV2
 from rrnet_torch.models.backbones.resnet import resnet10
 from rrnet_torch.models.backbones.trident import BottleneckV2
 from rrnet_torch.models.modules import SelfAttentionModule
+from rrnet_torch.ops.conv_epilogue import conv_epilogue_reference
 from rrnet_torch.utils import tracing
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -382,6 +383,11 @@ def test_the_fold_does_not_engage(run, monkeypatch):
         assert torch.equal(a, b), k
 
 
+def _bn_of_conv(c, b, x, residual=None, relu=False):
+    """`conv_bn` as the plain composition, `relu(bn(conv(x)) + residual)`."""
+    return conv_epilogue_reference(b(c(x)), None, residual, relu)
+
+
 def test_norm_eval_while_training_runs_unfolded(monkeypatch):
     """HRNetV2's backbone stays in eval mode while its parent trains; its
     pairs run unfolded, and its output and gradients are the plain
@@ -401,7 +407,7 @@ def test_norm_eval_while_training_runs_unfolded(monkeypatch):
     assert n["conv_bn.folded"] == 0
     assert n["conv_bn.unfolded"] == n_bn(tm)
     for mod in (layers, hrnet):
-        monkeypatch.setattr(mod, "conv_bn", lambda c, b, x: b(c(x)))
+        monkeypatch.setattr(mod, "conv_bn", _bn_of_conv)
     want, want_grads = step(ref)
     assert torch.equal(got, want)
     assert grads.keys() == want_grads.keys()
