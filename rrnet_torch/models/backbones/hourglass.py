@@ -19,8 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rrnet_torch.models.layers import (BatchNorm, ConvBN, Linear,
-                                       ResidualBlock, conv_bn, max_pool,
-                                       stem_conv)
+                                       ResidualBlock, max_pool, stem_conv)
 
 
 def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
@@ -183,7 +182,7 @@ class HourglassNet(nn.Module):
                 cin = c0
 
     def forward(self, x) -> List[torch.Tensor]:
-        x = conv_bn(self.pre_conv, self.pre_bn, x, relu=True)
+        x = self.pre_conv(x, self.pre_bn, relu=True)
         pre_feat = self.pre_res(x)
         if self.pool_stem:
             pre_feat = max_pool(pre_feat, 2, 2, 0)

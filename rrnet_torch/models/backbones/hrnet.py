@@ -34,8 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rrnet_torch.models.backbones.hourglass import resize_nearest
-from rrnet_torch.models.layers import (BatchNorm, Bottleneck, Conv2d,
-                                       conv_bn)
+from rrnet_torch.models.layers import BatchNorm, Bottleneck, Conv2d, ConvBN
 from rrnet_torch.utils import tracing
 
 
@@ -69,26 +68,10 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         with tracing.span("backbone.block"):
-            out = conv_bn(self.conv1, self.bn1, x, relu=True)
+            out = self.conv1(x, self.bn1, relu=True)
             skip = (x if self.down_conv is None
-                    else conv_bn(self.down_conv, self.down_bn, x))
-            return conv_bn(self.conv2, self.bn2, out, residual=skip,
-                           relu=True)
-
-
-class ConvBNRelu(nn.Module):
-    """3x3 conv (no bias) + BN (+ ReLU); the flax `_ConvBNRelu`."""
-
-    def __init__(self, cin: int, features: int, stride: int = 1,
-                 relu: bool = True, dtype=torch.float32):
-        super().__init__()
-        self.conv = Conv2d(cin, features, 3, stride, 1, bias=False,
-                           dtype=dtype)
-        self.bn = BatchNorm(features)
-        self.relu = relu
-
-    def forward(self, x):
-        return conv_bn(self.conv, self.bn, x, relu=self.relu)
+                    else self.down_conv(x, self.down_bn))
+            return self.conv2(out, self.bn2, residual=skip, relu=True)
 
 
 class StageModule(nn.Module):
@@ -118,9 +101,9 @@ class StageModule(nn.Module):
                 elif i > j:
                     for k in range(i - j):
                         last = k == i - j - 1
-                        self.add_module(f"fuse{i}_{j}_down{k}", ConvBNRelu(
+                        self.add_module(f"fuse{i}_{j}_down{k}", ConvBN(
                             channels[j], channels[i] if last else channels[j],
-                            stride=2, relu=not last, dtype=dtype))
+                            3, 2, with_relu=not last, dtype=dtype))
 
     def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         xs = list(xs)
@@ -135,8 +118,8 @@ class StageModule(nn.Module):
                     if i == j:
                         y = xs[j]
                     elif i < j:
-                        y = conv_bn(getattr(self, f"fuse{i}_{j}_conv"),
-                                    getattr(self, f"fuse{i}_{j}_bn"), xs[j])
+                        y = getattr(self, f"fuse{i}_{j}_conv")(
+                            xs[j], getattr(self, f"fuse{i}_{j}_bn"))
                         y = resize_nearest(y, *xs[i].shape[-2:])
                     else:
                         y = xs[j]
@@ -167,24 +150,22 @@ class HRNet(nn.Module):
         self.last_multi_scale = last_multi_scale
         self.norm_eval = norm_eval
         self.out_channels = widths if last_multi_scale else widths[:1]
-        self.stem1 = ConvBNRelu(in_channels, 64, stride=2, dtype=dtype)
-        self.stem2 = ConvBNRelu(64, 64, stride=2, dtype=dtype)
+        self.stem1 = ConvBN(in_channels, 64, 3, 2, dtype=dtype)
+        self.stem2 = ConvBN(64, 64, 3, 2, dtype=dtype)
         for b in range(4):
             self.add_module(f"layer1_{b}", Bottleneck(64 if b == 0 else 256,
                                                       64, dtype=dtype))
-        self.trans1_0 = ConvBNRelu(256, widths[0], dtype=dtype)
-        self.trans1_1 = ConvBNRelu(256, widths[1], stride=2, dtype=dtype)
+        self.trans1_0 = ConvBN(256, widths[0], dtype=dtype)
+        self.trans1_1 = ConvBN(256, widths[1], 3, 2, dtype=dtype)
         n2, n3, n4 = self.stage_modules
         for m in range(n2):
             self.add_module(f"stage2_{m}", StageModule(widths[:2],
                                                        dtype=dtype))
-        self.trans2_2 = ConvBNRelu(widths[1], widths[2], stride=2,
-                                   dtype=dtype)
+        self.trans2_2 = ConvBN(widths[1], widths[2], 3, 2, dtype=dtype)
         for m in range(n3):
             self.add_module(f"stage3_{m}", StageModule(widths[:3],
                                                        dtype=dtype))
-        self.trans3_3 = ConvBNRelu(widths[2], widths[3], stride=2,
-                                   dtype=dtype)
+        self.trans3_3 = ConvBN(widths[2], widths[3], 3, 2, dtype=dtype)
         for m in range(n4):
             last = m == n4 - 1
             self.add_module(f"stage4_{m}", StageModule(

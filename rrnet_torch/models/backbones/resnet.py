@@ -18,8 +18,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from rrnet_torch.models.layers import (BatchNorm, Bottleneck, Conv2d,
-                                       conv_bn, max_pool)
+from rrnet_torch.models.layers import BatchNorm, Bottleneck, Conv2d, max_pool
 
 
 class ResNet(nn.Module):
@@ -45,7 +44,7 @@ class ResNet(nn.Module):
             self.stages.append(names)
 
     def forward(self, x: torch.Tensor):
-        x = max_pool(conv_bn(self.conv1, self.bn1, x, relu=True), 3, 2, 1)
+        x = max_pool(self.conv1(x, self.bn1, relu=True), 3, 2, 1)
         outs = []
         for names in self.stages:
             for name in names:

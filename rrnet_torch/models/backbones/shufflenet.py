@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from rrnet_torch.models.layers import BatchNorm, Conv2d, conv_bn, max_pool
+from rrnet_torch.models.layers import ConvBN, max_pool
 
 STAGE_CHANNELS = {
     "0.5x": (24, 48, 96, 192, 1024),
@@ -33,23 +33,6 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
             .reshape(b, c, h, w))
 
 
-class ConvBNRelu(nn.Module):
-    """kxk conv (no bias, `groups`) + BN (+ ReLU); the flax
-    `_ConvBNRelu` of this file."""
-
-    def __init__(self, cin: int, features: int, kernel: int = 3,
-                 stride: int = 1, groups: int = 1, relu: bool = True,
-                 dtype=torch.float32):
-        super().__init__()
-        self.conv = Conv2d(cin, features, kernel, stride, (kernel - 1) // 2,
-                           bias=False, groups=groups, dtype=dtype)
-        self.bn = BatchNorm(features)
-        self.relu = relu
-
-    def forward(self, x):
-        return conv_bn(self.conv, self.bn, x, relu=self.relu)
-
-
 class InvertedResidual(nn.Module):
     """A ShuffleNetV2 unit (reference shufflenet.py:48-113): stride 1
     splits the channels and transforms one half; stride 2 runs both
@@ -65,13 +48,13 @@ class InvertedResidual(nn.Module):
             b_in = cin // 2
         else:
             b_in = cin
-            self.b1_dw = ConvBNRelu(cin, cin, 3, 2, groups=cin, relu=False,
-                                    **kw)
-            self.b1_pwl = ConvBNRelu(cin, half, 1, **kw)
-        self.b2_pw = ConvBNRelu(b_in, half, 1, **kw)
-        self.b2_dw = ConvBNRelu(half, half, 3, stride, groups=half,
-                                relu=False, **kw)
-        self.b2_pwl = ConvBNRelu(half, half, 1, **kw)
+            self.b1_dw = ConvBN(cin, cin, 3, 2, groups=cin, with_relu=False,
+                                **kw)
+            self.b1_pwl = ConvBN(cin, half, 1, **kw)
+        self.b2_pw = ConvBN(b_in, half, 1, **kw)
+        self.b2_dw = ConvBN(half, half, 3, stride, groups=half,
+                            with_relu=False, **kw)
+        self.b2_pwl = ConvBN(half, half, 1, **kw)
 
     def forward(self, x):
         if self.stride == 1:
@@ -94,7 +77,7 @@ class ShuffleNetV2(nn.Module):
             raise ValueError(f"shufflenet width {width!r} is not one of "
                              f"{sorted(STAGE_CHANNELS)}")
         chans = STAGE_CHANNELS[width]
-        self.conv1 = ConvBNRelu(in_channels, chans[0], 3, 2, dtype=dtype)
+        self.conv1 = ConvBN(in_channels, chans[0], 3, 2, dtype=dtype)
         cin = chans[0]
         for stage, repeats in enumerate(STAGE_REPEATS):
             out_c = chans[stage + 1]
@@ -102,7 +85,7 @@ class ShuffleNetV2(nn.Module):
                 self.add_module(f"stage{stage}_{i}", InvertedResidual(
                     cin, out_c, 2 if i == 0 else 1, dtype=dtype))
                 cin = out_c
-        self.conv_last = ConvBNRelu(cin, chans[-1], 1, dtype=dtype)
+        self.conv_last = ConvBN(cin, chans[-1], 1, dtype=dtype)
         self.out_channels = chans[1:3] + chans[-1:]
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:

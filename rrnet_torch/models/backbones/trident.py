@@ -26,8 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import (BatchNorm, Conv2d, conv2d, conv_bn,
-                                       max_pool, msra_init_)
+from rrnet_torch.models.layers import (BatchNorm, Conv2d, conv2d, max_pool,
+                                       msra_init_)
 from rrnet_torch.ops.deform_conv import deform_conv2d
 
 
@@ -145,7 +145,7 @@ class BottleneckV2(nn.Module):
         out = self.conv2(F.relu(self.bn2(out)))
         out = self.conv3(F.relu(self.bn3(out)))
         residual = (x if self.down_conv is None
-                    else conv_bn(self.down_conv, self.down_bn, x))
+                    else self.down_conv(x, self.down_bn))
         return out + residual
 
 
@@ -193,7 +193,7 @@ class TridentResNet(nn.Module):
         return x
 
     def forward(self, x):
-        x = max_pool(F.relu(conv_bn(self.conv1, self.bn1, x)), 3, 2, 1)
+        x = max_pool(self.conv1(x, self.bn1, relu=True), 3, 2, 1)
         l1 = self._stage("layer1", self.layers[0], x)
         l2 = self._stage("layer2", self.layers[1], l1)
         t = self.layer3_0(l2)

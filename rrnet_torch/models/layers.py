@@ -25,39 +25,47 @@ convolution at f32 precision in its forward and its backward, whatever
 the caller's global TF32 setting (PyTorch lets cuDNN take TF32 for f32
 convolutions by default).
 
-A conv that feeds a BN runs through `conv_bn(conv, bn, x)`. Where the BN
-is in eval mode, no gradient is wanted (grad mode off, or no parameter
-of the pair requires one) and no quant context is active, the pair is
-one convolution: the BN's eval affine (mul, add) is folded in the
+Every convolution of the port is one call, `conv(x, bn, residual=skip,
+relu=True)` (`Conv2d.forward`), with the BN after it, the block's
+residual and the ReLU where there are any. The BN is an argument of the
+call, not a submodule of the conv, so parameter names keep the flax
+scopes. `Conv2d.eval_form(bn)` alone decides how the call runs.
+
+In the eval form (neither the conv nor the BN in training mode, no quant
+context, no gradient wanted by the pair's parameters) the pair is one
+convolution: the BN's eval affine (mul, add) is folded in the
 parameters' dtype into the conv's weight (w * mul per output channel)
-and bias (add, plus bias * mul), each rounded once to the conv's
-dtype. Elsewhere it is `bn(conv(x))`. The folded weight and bias, and
-under the same conditions a lone conv's weight and bias cast to its
-dtype, are kept on the `Conv2d` (`Conv2d.eval_weights`), the weight in
-`torch.channels_last` memory. The eval input is channels-last too
+and bias (add, plus bias * mul), each rounded once to the conv's dtype;
+a lone conv's weight and bias are cast to its dtype. They are kept on
+the `Conv2d` (`Conv2d.eval_weights`), the weight in `torch.channels_last`
+memory. The eval input is channels-last too
 (`evallib.infer.Evaluator._normalize` makes it so), and each op of the
 body keeps its input's layout, so cuDNN runs every eval convolution in
 its native NHWC form, with no layout conversion before or after; an
 NCHW input to such a weight comes out channels-last. They are made again
 when the data pointer or version counter of a tensor they come from
-changes: a `load_state_dict`, an in-place update (of the flat tensor
-whose views are the Trainer's parameters, too), a move. The counters
-`conv_bn.folded`, `conv_bn.unfolded` and `conv_bn.fold_builds`
-(`utils.tracing`) count the pairs run each way and the folds made.
+changes (a `load_state_dict`, an in-place update, of the flat tensor
+whose views are the Trainer's parameters too), and dropped by any move
+or cast of the module (`.cuda()`, `.cpu()`, `.to()`, `.float()`: each
+buffer becomes a new tensor whose version counter starts again at 0, at
+an address the allocator may hand out again).
 
-Under the same conditions (`Conv2d.run_eval`), an eval convolution of a
-CUDA input runs without its bias, and one pass of `ops.conv_epilogue`
-over its output adds the bias, the block's residual where there is one
-and the ReLU where there is one, in place. cuDNN's convolution, grouped
-or not, adds its bias as a separate elementwise pass, so this equals the
-eager chain `relu(conv(x) + skip)` bit for bit. The channels-last weight
-makes the output channels-last; the kernel raises on an output or a
-residual laid out otherwise. `conv_bn` takes the residual and the ReLU
-as `residual=` and `relu=`, `Conv2d.forward` the ReLU; elsewhere
-(training, a quant context, the CPU, a gradient wanted, also through the
-input or the residual) the same arguments run those eager ops
-(`ops.conv_epilogue_reference`). The counters `conv_epilogue.kernel` and
-`conv_epilogue.plain` count the convs finished each way.
+On a CUDA input the eval form's convolution runs without its bias, and
+one pass of `ops.conv_epilogue` over its output adds the bias, the
+residual and the ReLU, in place. cuDNN's convolution, grouped or not,
+adds its bias as a separate elementwise pass, so this equals the eager
+chain `relu(conv(x) + skip)` bit for bit. The channels-last weight makes
+the output channels-last; the kernel raises on an output or a residual
+laid out otherwise. On the CPU, or where a gradient flows through the
+input or the residual, eager ops finish it
+(`ops.conv_epilogue_reference`). Outside the eval form every step is an
+eager op: the conv (int8 or calibrating under a quant context), `bn`,
+then the same tail.
+
+The counters (`utils.tracing`) `conv_bn.folded` and `conv_bn.unfolded`
+count the pairs run each way, `conv_bn.fold_builds` the folds made, and
+`conv_epilogue.kernel` and `conv_epilogue.plain` the convs finished each
+way (a conv with no bias, BN, residual or ReLU counts in neither).
 
 int8 post-training quantization (port of layers.py:40-110 and the int8
 branch of its `Conv2d`) is a mode, not a change of the parameters:
@@ -242,11 +250,6 @@ def drop_int8_weights(model: nn.Module) -> None:
             m._eval = None
 
 
-def _wants_grad(*params) -> bool:
-    return torch.is_grad_enabled() and any(
-        p is not None and p.requires_grad for p in params)
-
-
 def _versions(tensors) -> Optional[tuple]:
     """The (data pointer, version) of each tensor (None for an absent
     one), or None where one is an inference tensor, which keeps no
@@ -300,14 +303,54 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x, relu: bool = False):
-        """The conv, then the ReLU where asked; in the eval form (no
-        quant context, eval mode, no gradient wanted) through `run_eval`,
-        elsewhere as eager ops."""
+    def forward(self, x, bn: Optional["BatchNorm"] = None, residual=None,
+                relu: bool = False):
+        """`relu(bn(conv(x)) + residual)`, each part where given: in the
+        eval form (`eval_form`) one convolution on `eval_weights(bn)`,
+        finished on a CUDA input by one `ops.conv_epilogue` pass;
+        elsewhere eager ops (module docstring)."""
+        finish = (bn is not None or self.bias is not None
+                  or residual is not None or relu)
+        if self.eval_form(bn):
+            if bn is not None:
+                tracing.count("conv_bn.folded")
+            w, b = self.eval_weights(bn)
+            if not x.is_cuda:
+                y, b = self.run(x, w, b), None
+            else:
+                y = self.run(x, w, None)
+                if not finish:
+                    return y
+                if not (y.requires_grad or (residual is not None
+                                            and residual.requires_grad)):
+                    tracing.count("conv_epilogue.kernel")
+                    return epilogue.conv_epilogue(y, b, residual, relu)
+        else:
+            y, b = self._eager_conv(x), None
+            if bn is not None:
+                tracing.count("conv_bn.unfolded")
+                y = bn(y)
+        if finish:
+            tracing.count("conv_epilogue.plain")
+        return epilogue.conv_epilogue_reference(y, b, residual, relu)
+
+    def eval_form(self, bn: Optional["BatchNorm"] = None) -> bool:
+        """Whether this conv, with `bn` after it, runs its eval form:
+        neither module in training mode, no quant context, and no
+        gradient wanted by their parameters."""
+        if self.training or (bn is not None and bn.training) or (
+                current_quant() is not None):
+            return False
+        if not torch.is_grad_enabled():
+            return True
+        params = (self.weight, self.bias) if bn is None else (
+            self.weight, self.bias, bn.weight, bn.bias)
+        return not any(p is not None and p.requires_grad for p in params)
+
+    def _eager_conv(self, x):
+        """The conv and its bias as eager ops: int8, or recording its
+        input's absmax, under a quant context that takes this conv."""
         q = current_quant()
-        if q is None and not self.training and not _wants_grad(self.weight,
-                                                               self.bias):
-            return self.run_eval(x, *self.eval_weights(), relu=relu)
         if (q is not None and self.quantizable and self.groups == 1
                 and x.shape[1] >= q.min_channels):
             name = self.quant_name
@@ -320,13 +363,10 @@ class Conv2d(nn.Module):
                 q.stats[name] = amax if prev is None else torch.maximum(
                     prev, amax)
             elif q.scales is not None and q.scales.get(name, 0.0) > 0:
-                return _plain_tail(self._int8_forward(
-                    x, float(q.scales[name])), relu=relu,
-                    finished=self.bias is not None)
+                return self._int8_forward(x, float(q.scales[name]))
         w = self.weight.to(self.dtype)
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return _plain_tail(self.run(x, w, b), relu=relu,
-                           finished=b is not None)
+        return self.run(x, w, None if self.bias is None
+                        else self.bias.to(self.dtype))
 
     def run(self, x, weight, bias):
         """This conv's geometry on `x` in `dtype`, with the given weight
@@ -334,24 +374,11 @@ class Conv2d(nn.Module):
         return conv2d(x.to(self.dtype), weight, bias, self.stride,
                       self.padding, self.dilation, self.groups)
 
-    def run_eval(self, x, weight, bias, residual=None, relu: bool = False):
-        """The eval form of this conv (weight and bias from
-        `eval_weights`) and its epilogue: `+ residual` and the ReLU where
-        asked. On a CUDA input the convolution runs without its bias and
-        `ops.conv_epilogue` finishes it in one pass, raising on a layout
-        it does not take (module docstring); on the CPU, or where a
-        gradient flows through x or the residual, eager ops do."""
-        if not x.is_cuda:
-            return _plain_tail(self.run(x, weight, bias), None, residual,
-                               relu, finished=bias is not None)
-        y = self.run(x, weight, None)
-        if bias is None and residual is None and not relu:
-            return y
-        if y.requires_grad or (residual is not None
-                               and residual.requires_grad):
-            return _plain_tail(y, bias, residual, relu)
-        tracing.count("conv_epilogue.kernel")
-        return epilogue.conv_epilogue(y, bias, residual, relu)
+    def _apply(self, fn, recurse=True):
+        # a move or cast gives each buffer a new tensor whose version
+        # starts again at 0, maybe at a reused address: no key is safe
+        self._eval = self._int8 = None
+        return super()._apply(fn, recurse)
 
     def eval_weights(self, bn: Optional["BatchNorm"] = None):
         """(weight, bias) in `dtype` for a forward without gradients, the
@@ -477,31 +504,6 @@ class BatchNorm(nn.Module):
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 
-def _plain_tail(y, bias=None, residual=None, relu: bool = False,
-                finished: bool = False):
-    """`relu(y + bias + residual)` as the eager ops of
-    `ops.conv_epilogue_reference`; counts `conv_epilogue.plain` where
-    there was anything to finish (`finished`: a bias or BN already
-    applied to y)."""
-    if finished or bias is not None or residual is not None or relu:
-        tracing.count("conv_epilogue.plain")
-    return epilogue.conv_epilogue_reference(y, bias, residual, relu)
-
-
-def conv_bn(conv: Conv2d, bn: BatchNorm, x, residual=None,
-            relu: bool = False):
-    """`bn(conv(x))`, then `+ residual` and the ReLU where asked; one
-    folded convolution with its epilogue (`Conv2d.run_eval`) where `bn`
-    is in eval mode, no gradient is wanted and no quant context is active
-    (module docstring)."""
-    if (bn.training or current_quant() is not None
-            or _wants_grad(conv.weight, conv.bias, bn.weight, bn.bias)):
-        tracing.count("conv_bn.unfolded")
-        return _plain_tail(bn(conv(x)), None, residual, relu, finished=True)
-    tracing.count("conv_bn.folded")
-    return conv.run_eval(x, *conv.eval_weights(bn), residual, relu)
-
-
 def set_sync_group(model: nn.Module, group) -> nn.Module:
     """Make every `BatchNorm` of `model` a SyncBN over the data-parallel
     `group` (a `parallel.DataGroup`; None for per-rank statistics). Only
@@ -513,21 +515,21 @@ def set_sync_group(model: nn.Module, group) -> nn.Module:
 
 
 class ConvBN(nn.Module):
-    """kxk conv (+BN) (+ReLU); bias only when BN is off."""
+    """kxk conv (+BN) (+ReLU), `groups` as `Conv2d`'s; bias only when BN
+    is off. Also the flax `_ConvBNRelu` of HRNet (3x3) and ShuffleNet."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, with_bn: bool = True,
-                 with_relu: bool = True, dtype=torch.float32):
+                 with_relu: bool = True, dtype=torch.float32,
+                 groups: int = 1):
         super().__init__()
         self.conv = Conv2d(cin, features, kernel, stride, (kernel - 1) // 2,
-                           bias=not with_bn, dtype=dtype)
+                           bias=not with_bn, dtype=dtype, groups=groups)
         self.bn = BatchNorm(features) if with_bn else None
         self.with_relu = with_relu
 
     def forward(self, x):
-        if self.bn is None:
-            return self.conv(x, relu=self.with_relu)
-        return conv_bn(self.conv, self.bn, x, relu=self.with_relu)
+        return self.conv(x, self.bn, relu=self.with_relu)
 
 
 class ResidualBlock(nn.Module):
@@ -557,15 +559,13 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         with tracing.span("backbone.block"):
-            out = conv_bn(self.conv1, self.bn1, x, relu=True)
+            out = self.conv1(x, self.bn1, relu=True)
             skip = (x if self.skip_conv is None
-                    else conv_bn(self.skip_conv, self.skip_bn, x))
+                    else self.skip_conv(x, self.skip_bn))
             if self.se is not None:
                 # the SE scale sits between conv2's bias and the add
-                return F.relu(self.se(conv_bn(self.conv2, self.bn2, out))
-                              + skip)
-            return conv_bn(self.conv2, self.bn2, out, residual=skip,
-                           relu=True)
+                return F.relu(self.se(self.conv2(out, self.bn2)) + skip)
+            return self.conv2(out, self.bn2, residual=skip, relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -594,13 +594,11 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         with tracing.span("backbone.block"):
-            out = conv_bn(self.conv1, self.bn1, x, relu=True)
-            out = conv_bn(self.conv2, self.bn2, out, relu=True)
+            out = self.conv1(x, self.bn1, relu=True)
+            out = self.conv2(out, self.bn2, relu=True)
             skip = (x if self.downsample_conv is None
-                    else conv_bn(self.downsample_conv, self.downsample_bn,
-                                 x))
-            return conv_bn(self.conv3, self.bn3, out, residual=skip,
-                           relu=True)
+                    else self.downsample_conv(x, self.downsample_bn))
+            return self.conv3(out, self.bn3, residual=skip, relu=True)
 
 
 class Linear(nn.Module):

@@ -11,8 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rrnet_torch.models.layers import (BatchNorm, Conv2d, Linear, conv_bn,
-                                       max_pool)
+from rrnet_torch.models.layers import BatchNorm, Conv2d, Linear, max_pool
 from rrnet_torch.ops.dcn import deform_psroi_pooling
 
 
@@ -99,10 +98,10 @@ class SelfAttentionModule(nn.Module):
                         init="zeros", dtype=dtype, quantizable=False)
 
     def _tower(self, x, name):
-        y = conv_bn(getattr(self, f"{name}_conv1"),
-                    getattr(self, f"{name}_bn1"), x, relu=True)
-        return conv_bn(getattr(self, f"{name}_conv2"),
-                       getattr(self, f"{name}_bn2"), y, relu=True)
+        for i in (1, 2):
+            x = getattr(self, f"{name}_conv{i}")(
+                x, getattr(self, f"{name}_bn{i}"), relu=True)
+        return x
 
     def forward(self, x):
         in_hw = tuple(x.shape[-2:])

@@ -1,4 +1,5 @@
-"""The eval conv-BN fold of `rrnet_torch.models.layers.conv_bn`, on the CPU.
+"""The eval conv-BN fold of `rrnet_torch.models.layers.Conv2d`'s
+`conv(x, bn)`, on the CPU.
 
 Every module that runs a conv straight into its BN, folded (eval mode,
 no gradient wanted, no quant context) against the same module's plain
@@ -7,12 +8,15 @@ parameters and BN statistics away from (0, 1); in bf16 the folded
 result's widest gap to the f32 result at most 1.5x the plain bf16
 path's. The cached fold follows its tensors: a state-dict load, an
 in-place edit of a running statistic or of a flat tensor whose views are
-the parameters, a dtype move and `drop_int8_weights` each make the next
-forward fold again (`conv_bn.fold_builds`). Train mode, gradients,
+the parameters, a dtype move, any other move or cast of the module
+(even one that changes no tensor) and `drop_int8_weights` each make the
+next forward fold again (`conv_bn.fold_builds`). Train mode, gradients,
 HRNet's `norm_eval` while training and both quant modes run unfolded
 (`conv_bn.unfolded`), bit-equal to the plain composition, gradients too.
 Two eval forwards of a small RRNet on HRNetV2 with attention fold every
-pair and build each fold once. The `cuda` case moves a model to the card.
+pair and build each fold once. The `cuda` cases move a model to the
+card, and make a round trip to the CPU with an edit of a running
+statistic in between.
 """
 
 import copy
@@ -26,13 +30,12 @@ from rrnet_torch import config as tcfg
 from rrnet_torch.models import build_model
 from rrnet_torch.models import layers
 from rrnet_torch.models import rrnet as t_rrnet_mod
-from rrnet_torch.models.backbones import get_backbone, hrnet, shufflenet
+from rrnet_torch.models.backbones import get_backbone, hrnet
 from rrnet_torch.models.backbones.hourglass import HGResidual
 from rrnet_torch.models.backbones.hrnetv2 import HRNetV2
 from rrnet_torch.models.backbones.resnet import resnet10
 from rrnet_torch.models.backbones.trident import BottleneckV2
 from rrnet_torch.models.modules import SelfAttentionModule
-from rrnet_torch.ops.conv_epilogue import conv_epilogue_reference
 from rrnet_torch.utils import tracing
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -153,8 +156,8 @@ CASES = {
     "hrnet.BasicBlock": (lambda dt: hrnet.BasicBlock(6, 8, stride=2,
                                                      dtype=dt),
                          (2, 6, 12, 10)),
-    "hrnet.ConvBNRelu": (lambda dt: hrnet.ConvBNRelu(6, 8, stride=2,
-                                                     dtype=dt),
+    # HRNet's and ShuffleNet's conv-BN(-ReLU) are `ConvBN`s
+    "hrnet.ConvBNRelu": (lambda dt: layers.ConvBN(6, 8, 3, 2, dtype=dt),
                          (2, 6, 12, 10)),
     "hrnet.StageModule.fuse": (
         lambda dt: ListIn(hrnet.StageModule((4, 8, 16), num_blocks=1,
@@ -167,7 +170,7 @@ CASES = {
         8, key_channels=8, value_channels=8, kernel_size=3, dilation=2,
         padding=2, dtype=dt), (2, 8, 12, 10)),
     "resnet.stem": (lambda dt: resnet10(dtype=dt), (1, 3, 32, 32)),
-    "shufflenet.ConvBNRelu": (lambda dt: shufflenet.ConvBNRelu(
+    "shufflenet.ConvBNRelu": (lambda dt: layers.ConvBN(
         8, 8, 3, 1, groups=8, dtype=dt), (2, 8, 12, 10)),
     "trident.BottleneckV2": (lambda dt: BottleneckV2(8, 16, 2,
                                                      downsample=True),
@@ -383,11 +386,6 @@ def test_the_fold_does_not_engage(run, monkeypatch):
         assert torch.equal(a, b), k
 
 
-def _bn_of_conv(c, b, x, residual=None, relu=False):
-    """`conv_bn` as the plain composition, `relu(bn(conv(x)) + residual)`."""
-    return conv_epilogue_reference(b(c(x)), None, residual, relu)
-
-
 def test_norm_eval_while_training_runs_unfolded(monkeypatch):
     """HRNetV2's backbone stays in eval mode while its parent trains; its
     pairs run unfolded, and its output and gradients are the plain
@@ -406,8 +404,9 @@ def test_norm_eval_while_training_runs_unfolded(monkeypatch):
     (got, grads), n = counted(lambda: step(parent))
     assert n["conv_bn.folded"] == 0
     assert n["conv_bn.unfolded"] == n_bn(tm)
-    for mod in (layers, hrnet):
-        monkeypatch.setattr(mod, "conv_bn", _bn_of_conv)
+    # the plain composition, `relu(bn(conv(x)) + residual)`
+    monkeypatch.setattr(layers.Conv2d, "eval_form", lambda self, bn=None:
+                        False)
     want, want_grads = step(ref)
     assert torch.equal(got, want)
     assert grads.keys() == want_grads.keys()
@@ -441,6 +440,23 @@ def test_counters_of_two_eval_forwards_of_rrnet_hrnetv2_attention(
     assert torch.equal(first.hms[-1], second.hms[-1])
 
 
+@pytest.mark.parametrize("move", ["float", "cpu", "to"])
+def test_a_move_or_cast_builds_every_fold_again(move):
+    """A move or cast of the module gives each buffer a new tensor whose
+    version starts again at 0, at an address that may come back: it
+    drops every cached fold, even where it changes no tensor."""
+    m = randomize(HRNetV2(**SMALL_HRNET), seed=23)
+    pairs = n_bn(m)
+    x = x_of(24, 1, 3, 32, 32)
+    with torch.no_grad():
+        first, n1 = counted(lambda: m(x))
+        {"float": m.float, "cpu": m.cpu,
+         "to": lambda: m.to("cpu", torch.float32)}[move]()
+        again, n2 = counted(lambda: m(x))
+    assert n1["conv_bn.fold_builds"] == n2["conv_bn.fold_builds"] == pairs
+    assert torch.equal(flat(first), flat(again))
+
+
 @pytest.mark.cuda
 def test_cuda_a_move_to_the_card_folds_again():
     if not torch.cuda.is_available():
@@ -453,3 +469,24 @@ def test_cuda_a_move_to_the_card_folds_again():
         got, n = counted(lambda: m(x.cuda()))
     assert n["conv_bn.fold_builds"] == 1
     torch.testing.assert_close(got, plain(m, x.cuda()), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_a_round_trip_with_an_edited_statistic_folds_again():
+    """To the card, a forward, back to the CPU, `running_var` edited in
+    place, to the card again: the fold follows the edit, whatever
+    addresses the allocator hands back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    m = randomize(layers.ConvBN(6, 8, 3, 2, with_relu=False), seed=25)
+    x = x_of(26, 2, 6, 13, 11).cuda()
+    with torch.no_grad():
+        m.cuda()
+        before = m(x)
+        m.cpu()
+        m.bn.running_var.mul_(1.7)
+        m.cuda()
+        got, n = counted(lambda: m(x))
+    assert n["conv_bn.fold_builds"] == 1
+    torch.testing.assert_close(got, plain(m, x), **TOL)
+    assert not torch.allclose(got, before)

@@ -3,9 +3,10 @@
 On the CPU:
   (a) every block whose convs now take `residual=` and `relu=`
       (`ResidualBlock` with and without its skip conv, and with the SE
-      scale; `Bottleneck`; HRNet's `BasicBlock` and `ConvBNRelu`;
-      ShuffleNet's; `ConvBN`; the three heads' towers; the attention's
-      towers) equals, bit for bit, its forward as written before, in
+      scale; `Bottleneck`; HRNet's `BasicBlock`; `ConvBN`, also as HRNet's
+      and ShuffleNet's conv-BN-ReLU; the three heads' towers; the
+      attention's towers; the trident's stem) equals, bit for bit, its
+      forward as written before, in
       eval mode in f32 and bf16, and in each mode where the kernel does
       not engage (train mode, a gradient wanted, calibration, int8);
   (b) the routing: every one of those runs moves `conv_epilogue.plain`
@@ -39,8 +40,9 @@ import torch.nn.functional as F
 
 from rrnet_torch import config as tcfg
 from rrnet_torch.models import build_model, layers
-from rrnet_torch.models.backbones import hrnet, shufflenet
+from rrnet_torch.models.backbones import hrnet
 from rrnet_torch.models.backbones.hourglass import HGResidual
+from rrnet_torch.models.backbones.trident import TridentResNet
 from rrnet_torch.models.heads import (CenterNetHead, CenterNetWHHead,
                                       RetinaNetHead)
 from rrnet_torch.models.modules import SelfAttentionModule
@@ -101,44 +103,37 @@ def counted(fn):
     return out, total
 
 
-# The forwards as they were written before the epilogue: conv_bn and the
-# lone conv without `residual=` or `relu=`, the adds and ReLUs as ops.
+# The forwards as they were written before the epilogue: each conv (with
+# its BN) without `residual=` or `relu=`, the adds and ReLUs as ops.
 
 def old_residual(m, x):
-    out = F.relu(layers.conv_bn(m.conv1, m.bn1, x))
-    out = layers.conv_bn(m.conv2, m.bn2, out)
+    out = F.relu(m.conv1(x, m.bn1))
+    out = m.conv2(out, m.bn2)
     if m.se is not None:
         out = m.se(out)
-    skip = (x if m.skip_conv is None
-            else layers.conv_bn(m.skip_conv, m.skip_bn, x))
+    skip = x if m.skip_conv is None else m.skip_conv(x, m.skip_bn)
     return F.relu(out + skip)
 
 
 def old_bottleneck(m, x):
-    out = F.relu(layers.conv_bn(m.conv1, m.bn1, x))
-    out = F.relu(layers.conv_bn(m.conv2, m.bn2, out))
-    out = layers.conv_bn(m.conv3, m.bn3, out)
+    out = F.relu(m.conv1(x, m.bn1))
+    out = F.relu(m.conv2(out, m.bn2))
+    out = m.conv3(out, m.bn3)
     skip = (x if m.downsample_conv is None
-            else layers.conv_bn(m.downsample_conv, m.downsample_bn, x))
+            else m.downsample_conv(x, m.downsample_bn))
     return F.relu(out + skip)
 
 
 def old_basic(m, x):
-    out = F.relu(layers.conv_bn(m.conv1, m.bn1, x))
-    out = layers.conv_bn(m.conv2, m.bn2, out)
-    skip = (x if m.down_conv is None
-            else layers.conv_bn(m.down_conv, m.down_bn, x))
+    out = F.relu(m.conv1(x, m.bn1))
+    out = m.conv2(out, m.bn2)
+    skip = x if m.down_conv is None else m.down_conv(x, m.down_bn)
     return F.relu(out + skip)
 
 
 def old_convbn(m, x):
-    x = m.conv(x) if m.bn is None else layers.conv_bn(m.conv, m.bn, x)
+    x = m.conv(x, m.bn)
     return F.relu(x) if m.with_relu else x
-
-
-def old_convbnrelu(m, x):
-    x = layers.conv_bn(m.conv, m.bn, x)
-    return F.relu(x) if m.relu else x
 
 
 def old_centernet_head(m, x):
@@ -165,12 +160,34 @@ def old_retina_head(m, x):
 
 
 def old_tower(m, x):
-    y = F.relu(layers.conv_bn(m.f_key_conv1, m.f_key_bn1, x))
-    return F.relu(layers.conv_bn(m.f_key_conv2, m.f_key_bn2, y))
+    y = F.relu(m.f_key_conv1(x, m.f_key_bn1))
+    return F.relu(m.f_key_conv2(y, m.f_key_bn2))
 
 
 def new_tower(m, x):
     return m._tower(x, "f_key")
+
+
+def old_trident_stem(m, x):
+    return layers.max_pool(F.relu(m.conv1(x, m.bn1)), 3, 2, 1)
+
+
+class _Stem(Exception):
+    """Raised with `layer1_0`'s input, to stop the trident's forward there."""
+
+
+def new_trident_stem(m, x):
+    """`TridentResNet.forward` up to its first block: the stem's output."""
+    def stop(mod, args):
+        raise _Stem(args[0])
+
+    hook = m.layer1_0.register_forward_pre_hook(stop)
+    try:
+        m(x)
+    except _Stem as e:
+        return e.args[0]
+    finally:
+        hook.remove()
 
 
 # name -> (module of a dtype, input shape, old forward, new forward, the
@@ -199,11 +216,11 @@ CASES = {
     "ConvBN.no_bn": (lambda dt: layers.ConvBN(6, 8, 3, with_bn=False,
                                               dtype=dt),
                      (2, 6, 11, 9), old_convbn, None, 1),
-    "hrnet.ConvBNRelu": (lambda dt: hrnet.ConvBNRelu(6, 8, stride=2,
-                                                     dtype=dt),
-                         (2, 6, 11, 9), old_convbnrelu, None, 1),
-    "shufflenet.ConvBNRelu": (lambda dt: shufflenet.ConvBNRelu(
-        8, 8, 3, 1, groups=8, dtype=dt), (2, 8, 11, 9), old_convbnrelu,
+    # HRNet's and ShuffleNet's conv-BN(-ReLU) are `ConvBN`s
+    "hrnet.ConvBNRelu": (lambda dt: layers.ConvBN(6, 8, 3, 2, dtype=dt),
+                         (2, 6, 11, 9), old_convbn, None, 1),
+    "shufflenet.ConvBNRelu": (lambda dt: layers.ConvBN(
+        8, 8, 3, 1, groups=8, dtype=dt), (2, 8, 11, 9), old_convbn,
         None, 1),
     "CenterNetHead": (lambda dt: CenterNetHead(
         3, num_stacks=1, mid_channels=16, in_channels=8, dtype=dt),
@@ -217,6 +234,9 @@ CASES = {
     "SelfAttention.tower": (lambda dt: SelfAttentionModule(
         8, key_channels=8, value_channels=8, kernel_size=3, padding=1,
         dtype=dt), (2, 8, 11, 9), old_tower, new_tower, 2),
+    # f32 only: a bf16 input runs through its f32 convs
+    "trident.stem": (lambda dt: TridentResNet(), (2, 3, 11, 9),
+                     old_trident_stem, new_trident_stem, 1),
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -448,11 +468,12 @@ def small_rrnet(dtype_name, monkeypatch=None):
     return cfg, model.to("cuda")
 
 
-def old_run_eval(self, x, weight, bias, residual=None, relu=False):
-    """`Conv2d.run_eval` as the eager chain: cuDNN's biased conv, then
-    the add and F.relu as ops."""
-    return layers._plain_tail(self.run(x, weight, bias), None, residual,
-                              relu, bias is not None)
+def old_eval_forward(self, x, bn=None, residual=None, relu=False):
+    """`Conv2d.forward`'s eval form as the eager chain: cuDNN's biased
+    conv on the cached (folded) weights, then the add and F.relu as
+    ops."""
+    return ce.conv_epilogue_reference(self.run(x, *self.eval_weights(bn)),
+                                      None, residual, relu)
 
 
 @pytest.mark.cuda
@@ -470,7 +491,7 @@ def test_cuda_call_sites_equal_the_old_composition(cuda_device, name, dt,
         got, n = counted(lambda: run_new(name, m, x))
     assert n == {"conv_epilogue.kernel": n_convs, "conv_epilogue.plain": 0}
     assert ce.launches == before + n_convs
-    monkeypatch.setattr(layers.Conv2d, "run_eval", old_run_eval)
+    monkeypatch.setattr(layers.Conv2d, "forward", old_eval_forward)
     with torch.no_grad():
         want = old(m, x)
     assert got.dtype == want.dtype
@@ -494,7 +515,7 @@ def test_cuda_small_rrnet_equals_the_old_composition(cuda_device, dt,
         (out, rows), n = counted(lambda: (model(x), ev.predict_batch(imgs)))
     assert n["conv_epilogue.kernel"] > 0
     assert n["conv_epilogue.plain"] == 0            # hit share 1.0
-    monkeypatch.setattr(layers.Conv2d, "run_eval", old_run_eval)
+    monkeypatch.setattr(layers.Conv2d, "forward", old_eval_forward)
     with torch.no_grad():
         want, want_rows = model(x), ev.predict_batch(imgs)
     for a, b in zip(out.hms + out.whs + out.offsets + (out.stage2_reg,),
