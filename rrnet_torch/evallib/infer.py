@@ -11,9 +11,12 @@ normalize, edge-replicate pad to the bucket, into channels-last memory
 (`val.scales`) and flip: bilinear resize to the scaled bucket
 (`bucket * scale` rounded up to `bucket_multiple`), horizontal flip
 within each image's valid width, forward, decode, and one packed
-(B, K, 6) [x, y, w, h, score, cls] result, so `collect` makes one
-device->host copy per program. Flip TTA runs the flipped and unflipped
-halves as one 2B forward (`fuse_flip=True`, the default) or as two.
+(B, K, 6) [x, y, w, h, score, cls] result. On a card the dispatch queues
+each program's copy of its result into pinned host memory right behind
+the program, with an event after it, so `collect` waits only for its own
+batch's copies, never for work queued after them. Flip TTA runs the
+flipped and unflipped halves as one 2B forward (`fuse_flip=True`, the
+default) or as two.
 
 `collect` undoes the flip and the scale, concatenates each image's rows
 over the programs and, for `val.auto_test=False`, merges them on the
@@ -114,6 +117,23 @@ def scaled_valid_hw(valid_hw: torch.Tensor, bucket: Tuple[int, int],
     return torch.stack([torch.ceil(vhw[:, 0] * (scaled[0] / bucket[0])),
                         torch.ceil(vhw[:, 1] * (scaled[1] / bucket[1]))],
                        dim=1).to(torch.int32)
+
+
+def _to_host(packed: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+    """A program's packed rows and the event `gather` waits on. On a card
+    the copy into pinned host memory is queued on the stream right behind
+    the program, and the event after it; on the CPU the rows are the host
+    tensor already, with no event. The pinned blocks come from the caching
+    host allocator, which hands one out again once its copy has landed."""
+    if packed.device.type != "cuda":
+        return packed, None
+    stream = torch.cuda.current_stream(packed.device)
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    landed = torch.cuda.Event()
+    landed.record(stream)
+    return host, landed
 
 
 class Evaluator:
@@ -399,7 +419,8 @@ class Evaluator:
     def dispatch_batch(self, images):
         """Queue the device work of every (scale, flip) program for a
         same-bucket batch (a list of HWC uint8 images, or what `stage`
-        made of one); returns a handle for `collect`."""
+        made of one), each program's result copy to the host behind it;
+        returns a handle for `collect`."""
         with tracing.span("eval.dispatch"):
             if len(self._replicas) > 1:
                 parts = images if isinstance(images, ShardedBatch) else \
@@ -430,7 +451,8 @@ class Evaluator:
                 for flip in flips:
                     with tracing.span("eval.program", scale=scale):
                         x, vhw = self._preprocess(staged, scaled, flip, base)
-                        pending.append((self._forward(x, vhw), flip, ry, rx))
+                        pending.append((*_to_host(self._forward(x, vhw)),
+                                        flip, ry, rx))
                     if x.shape not in self._shapes_run:
                         # a shape cuDNN has not planned for in this process
                         self._shapes_run.add(x.shape)
@@ -452,20 +474,28 @@ class Evaluator:
     def gather(self, handle) -> List[np.ndarray]:
         """Per image, the rows of every program of a dispatched batch in
         original pixels (flip and scale undone), concatenated and sorted
-        by score (stable)."""
+        by score (stable). On a card it waits, program by program, on the
+        event recorded after that program's copy at dispatch, so the
+        batches dispatched after this one keep the device busy while it
+        runs; on the CPU the rows are there already."""
         if isinstance(handle, ShardedBatch):
             return [rows for r, h in handle.parts for rows in r.gather(h)]
         pending, hws = handle
         n = len(hws)
         host = []
-        for packed, _, _, _ in pending:
-            # a blocking copy: it waits for all the work queued before it
+        for packed, landed, _, _, _ in pending:
             with tracing.span("eval.copy"):
                 tracing.count("eval.d2h_syncs")
-                host.append(packed.cpu().numpy())
+                if landed is not None:
+                    # waits for this program's own copy, not for the
+                    # batches queued behind it
+                    tracing.count("eval.results_ready" if landed.query()
+                                  else "eval.results_waited")
+                    landed.synchronize()
+                host.append(packed.numpy())
         with tracing.span("eval.rows"):
             per_img: List[List[np.ndarray]] = [[] for _ in range(n)]
-            for packed, (_, flip, ry, rx) in zip(host, pending):
+            for packed, (_, _, flip, ry, rx) in zip(host, pending):
                 packed = packed.astype(np.float64)
                 # a fused flip program returns 2n images: [0, n)
                 # unflipped, [n, 2n) flipped
@@ -515,7 +545,10 @@ class Evaluator:
         bucket into batches; a leftover batch is padded to `batch_size`
         with copies of its last image, whose outputs are dropped. Batch
         k+1 is uploaded on a thread while batch k computes, and batch k
-        is collected and written after batch k+1 is dispatched. Each
+        is collected and written after batch k+1 is dispatched: on a card
+        its collect waits only for its own result copies, so the device
+        works through batch k+1 while the host writes batch k, reads the
+        next frames and issues batch k+2. Each
         batch gets the next id of this Evaluator's sequence, which the
         spans of its read, upload, dispatch, collect and write carry
         (`utils.tracing`). Returns the result dir."""

@@ -116,7 +116,8 @@ class Predictor:
 
     # Splitting predict_batch into stage / dispatch / collect lets a
     # caller upload batch k+1 while batch k computes: dispatch only
-    # queues device work, collect waits for it.
+    # queues device work (the result copies included), collect waits for
+    # that batch's own work and none queued after it.
     def stage(self, images: List[np.ndarray]):
         """Upload a same-bucket image list; returns a staged batch."""
         return self._ev._upload(images)
