@@ -336,8 +336,9 @@ class Evaluator:
     def anchors_for(self, shape: Tuple[int, int]) -> torch.Tensor:
         """RetinaNet's anchors of an input shape, on the device, made once
         a shape (the copy is the only host step; a later forward of the
-        shape makes none)."""
+        shape makes none); each build counts `retinanet.anchor_builds`."""
         if shape not in self._anchors:
+            tracing.count("retinanet.anchor_builds")
             self._anchors[shape] = torch.tensor(
                 model_anchors(self.cfg.model, shape), device=self.device)
         return self._anchors[shape]

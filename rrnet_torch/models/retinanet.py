@@ -18,6 +18,12 @@ standardised deltas (0.1, 0.1, 0.2, 0.2) applied, valid = score > 0.1,
 then class-agnostic hard NMS at 0.3 with the legacy +1 extents: the CUDA
 kernel of `ops/hard_nms.py` on the card, one launch a forward, with no
 host sync.
+
+Spans (`utils.tracing`): `retinanet.backbone`, `retinanet.fpn` and
+`retinanet.heads` in the forward, `retinanet.decode` (the candidates)
+and `retinanet.nms` (NMS and the packed rows) in `decode`; the counter
+`retinanet.anchors` adds the anchors a forward scores (B * N, from the
+shapes, with no sync).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from rrnet_torch.models.heads import RetinaNetHead
 from rrnet_torch.models.modules import FPN
 from rrnet_torch.ops.hard_nms import hard_nms
 from rrnet_torch.ops.heatmap import topk_desc
+from rrnet_torch.utils import tracing
 
 SCORE_THRESHOLD = 0.1     # retinanet_operator.py: anchors scoring above
 NMS_IOU = 0.3             # class-agnostic gpu_nms threshold
@@ -59,11 +66,15 @@ class RetinaNet(nn.Module):
     def forward(self, x: torch.Tensor):
         """x (B, 3, H, W) -> (loc (B, N, 4), cls logits (B, N,
         num_classes)) in the compute dtype, N = sum_l H_l * W_l * A."""
-        _, l2, l3, l4 = self.backbone(x)
-        fms = self.fpn(l2, l3, l4)
-        loc = torch.cat([_flatten(self.loc(fm), 4) for fm in fms], 1)
-        cls = torch.cat([_flatten(self.cls(fm), self.num_classes)
-                         for fm in fms], 1)
+        with tracing.span("retinanet.backbone"):
+            _, l2, l3, l4 = self.backbone(x)
+        with tracing.span("retinanet.fpn"):
+            fms = self.fpn(l2, l3, l4)
+        with tracing.span("retinanet.heads"):
+            loc = torch.cat([_flatten(self.loc(fm), 4) for fm in fms], 1)
+            cls = torch.cat([_flatten(self.cls(fm), self.num_classes)
+                             for fm in fms], 1)
+            tracing.count("retinanet.anchors", cls.shape[0] * cls.shape[1])
         return loc, cls
 
 
@@ -110,10 +121,12 @@ def decode(loc: torch.Tensor, cls: torch.Tensor, anchors: torch.Tensor,
            valid_hw: torch.Tensor, topk: int) -> torch.Tensor:
     """Candidates, NMS and the packed (B, K, 6) rows [x, y, w, h, score,
     cls + 1]; rows NMS dropped or scoring <= 0.1 get score -1."""
-    c = candidates(loc, cls, anchors, valid_hw, topk)
-    keep = nms(c) & c.valid
-    b = c.boxes
-    xywh = torch.cat([b[..., :2], b[..., 2:4] - b[..., :2]], -1)
-    score = torch.where(keep, c.scores, -1.0)
-    return torch.cat([xywh, score[..., None],
-                      c.classes.float()[..., None] + 1.0], dim=-1)
+    with tracing.span("retinanet.decode"):
+        c = candidates(loc, cls, anchors, valid_hw, topk)
+    with tracing.span("retinanet.nms"):
+        keep = nms(c) & c.valid
+        b = c.boxes
+        xywh = torch.cat([b[..., :2], b[..., 2:4] - b[..., :2]], -1)
+        score = torch.where(keep, c.scores, -1.0)
+        return torch.cat([xywh, score[..., None],
+                          c.classes.float()[..., None] + 1.0], dim=-1)
